@@ -1,0 +1,46 @@
+"""Layers of the DFF models that differ from PyTorch's defaults (the port of
+`aadff_tpu/models/layers.py`).
+
+The convolutions, transposed convolutions and max-pools of the JAX package
+pin torch's geometry (`layers.py:23-103`), so the port uses `nn.Conv3d`,
+`nn.ConvTranspose3d` and `F.max_pool3d` as they are.  What differs is
+BatchNorm's running statistics: Flax keeps `momentum * old + (1 - momentum)
+* batch` with momentum 0.9 and the *biased* batch variance, where
+`nn.BatchNorm3d` uses momentum 0.1 on the new value and the unbiased one.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over dim 1 with Flax's running statistics (`nn.BatchNorm(
+    momentum=0.9, epsilon=1e-5)`, `aadff_tpu/models/aifnet.py:37-38`)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            with torch.no_grad():
+                dims = [0, *range(2, x.dim())]
+                var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+                self.running_mean.mul_(self.momentum).add_(
+                    (1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_(
+                    (1 - self.momentum) * var)
+            # normalises with the biased batch variance, as Flax does
+            return F.batch_norm(x, None, None, self.weight, self.bias,
+                                training=True, momentum=0.0, eps=self.eps)
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False,
+                            momentum=0.0, eps=self.eps)

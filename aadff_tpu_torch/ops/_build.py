@@ -1,0 +1,85 @@
+"""Build the port's CUDA kernels with nvcc into a plain shared library and
+load it with ctypes.
+
+The library has a C interface and includes no PyTorch header, so nvcc builds
+it in seconds.  It is built at first use into `build/aadff_tpu_torch/` under
+the repository root and rebuilt when a source or a flag changes (a stamp file
+holds their hash).  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_ROOT = Path(__file__).resolve().parents[2]
+SOURCES = (Path(__file__).resolve().parents[1] / "csrc" / "fused_psf_render.cu",)
+BUILD_DIR = _ROOT / "build" / "aadff_tpu_torch"
+LIBRARY = BUILD_DIR / "libaadff_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME, else the default toolkit."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _stamp() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> dict:
+    """Compile the kernels if the library is missing or stale.
+
+    Returns {"path", "built", "seconds", "log"}; `log` holds nvcc's output,
+    including ptxas' registers, shared memory and spills per kernel.
+    """
+    stamp_file = LIBRARY.with_suffix(".so.stamp")
+    stamp = _stamp()
+    if LIBRARY.exists() and stamp_file.exists() and stamp_file.read_text() == stamp:
+        return {"path": str(LIBRARY), "built": False, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIBRARY.with_suffix(f".so.tmp{os.getpid()}")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, LIBRARY)
+    stamp_file.write_text(stamp)
+    return {"path": str(LIBRARY), "built": True, "seconds": seconds, "log": log}
+
+
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), with argtypes set."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()["path"])
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.aadff_fused_psf_render.argtypes = [
+            p, p, p, p, ctypes.POINTER(i), i, p, i, i, i, i, i, i, f, f, p]
+        lib.aadff_fused_psf_render.restype = i
+        lib.aadff_error_string.argtypes = [i]
+        lib.aadff_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib

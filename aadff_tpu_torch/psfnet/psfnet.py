@@ -1,0 +1,71 @@
+"""PSF surrogate: load, predict and render focal stacks (the port of
+`PSFNet.load_net`, `pred`, `render`, `render_stack` and `render_path` in
+`aadff_tpu/psfnet/psfnet.py:109-118, 551-722`).
+
+The port takes `sensor_res` directly and builds no ray-traced `Lens`.  Units
+are the reference's: depths and focus distances in negative millimetres,
+normalised over [d_min, d_max] = [-DMIN, -DMAX] and clipped to [0, 1].  On a
+CUDA device every render goes through the fused kernel, at any resolution.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..constants import DMAX, DMIN
+from ..ops.fused_render import fused_psf_render
+from ..utils import flax_msgpack
+from .arch import MLP
+from .convert import flax_mlp_to_torch_state
+
+
+class PSFNet:
+    def __init__(self, kernel_size: int = 11, sensor_res=(480, 640),
+                 device="cuda"):
+        self.kernel_size = kernel_size
+        self.sensor_res = tuple(sensor_res)
+        self.device = torch.device(device)
+        self.d_max = -DMAX
+        self.d_min = -DMIN
+        self.model = MLP(in_features=4, out_features=kernel_size ** 2,
+                         hidden_features=256, hidden_layers=8).to(self.device)
+        self.model.requires_grad_(False)
+
+    def load_net(self, net_path: str):
+        """Load Flax msgpack weights (`{'params': {'Dense_i': ...}}`)."""
+        state = flax_mlp_to_torch_state(flax_msgpack.load(net_path))
+        self.model.load_state_dict(state)
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=self.device).contiguous()
+
+    @torch.no_grad()
+    def pred(self, inp) -> torch.Tensor:
+        """[..., 4] -> [..., ks, ks] PSFs."""
+        psf = self.model(self._tensor(inp))
+        return psf.reshape(*psf.shape[:-1], self.kernel_size, self.kernel_size)
+
+    def render_stack(self, img, depth, focus_dists) -> torch.Tensor:
+        """img [B, C, H, W]; depth [B, 1, H, W] mm (<0); focus_dists [B, S]
+        mm (<0) -> [B, S, C, H, W]."""
+        img = self._tensor(img)
+        B, C, H, W = img.shape
+        depth = self._tensor(depth).reshape(B, H, W)
+        focus = self._tensor(focus_dists).reshape(B, -1)
+        return fused_psf_render(self.model, img, depth, focus,
+                                self.kernel_size, self.d_min, self.d_max)
+
+    def render(self, img, depth, foc_dist) -> torch.Tensor:
+        """img [N, C, H, W] (or [C, H, W]); depth [N, 1, H, W] or [N, H, W] mm
+        (<0); foc_dist [N] mm (<0) -> [N, C, H, W]."""
+        img = self._tensor(img)
+        if img.dim() == 3:
+            img = img[None]
+        foc = self._tensor(foc_dist).reshape(-1, 1)
+        return self.render_stack(img, depth, foc)[:, 0]
+
+    def render_path(self) -> str:
+        """Label of the path render()/render_stack() take on this device."""
+        if self.device.type == "cuda":
+            return "fused-mlp+conv(f32,cuda)"
+        return "torch-mlp+taploop(f32)"
