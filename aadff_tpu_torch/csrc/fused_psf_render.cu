@@ -23,43 +23,25 @@
 //    the S frames, so the edge-replicated (TH+10) x (TW+10) x C image halo is
 //    loaded once for all frames (the TPU kernel's reuse).  Only foc_z differs
 //    between frames; x, y and z are computed once per pixel.
-//  * The activations ping-pong between two [256 x 64] f32 buffers in dynamic
-//    shared memory (64 KB each).  Each layer is a small GEMM
-//    out[f,p] = sum_k W^T[k,f] * in[k,p]: each of the 256 threads keeps an
-//    (8 features x 8 pixels) tile of sums in registers, so a k step is four
-//    16-byte shared loads for 64 FMAs.
-//  * Weights are read through L2 in chunks of 32 rows, staged into shared
-//    memory with cp.async, double-buffered so the next chunk's copy overlaps
-//    the current chunk's FMAs.
+//  * The MLP stage is mlp_tile.cuh, shared with mlp_psf.cu: activations
+//    ping-pong between two [256 x 64] f32 buffers in dynamic shared memory
+//    (64 KB each); each layer is a small GEMM out[f,p] = sum_k W^T[k,f] *
+//    in[k,p] in which each of the 256 threads keeps an (8 features x 8
+//    pixels) tile of sums in registers, so a k step is four 16-byte shared
+//    loads for 64 FMAs.  Weights are read through L2 in chunks of 32 rows,
+//    staged into shared memory with cp.async, double-buffered so the next
+//    chunk's copy overlaps the current chunk's FMAs.
 //  * Plain f32 FMA on the CUDA cores.  TF32/bf16 tensor cores (wgmma) and
 //    TMA are later work; the bound above says what they are worth.
 // The ragged edge is masked: any H x W is accepted.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
+#include "mlp_tile.cuh"
 
 namespace {
 
 constexpr int TH = 4;             // tile rows
 constexpr int TW = 16;            // tile columns
-constexpr int P = TH * TW;        // pixels per block
-constexpr int NT = 256;           // threads per block
-constexpr int KC = 32;            // weight rows per staged chunk
-constexpr int FMAX = 256;         // widest (padded) layer
-constexpr int MAX_LAYERS = 16;
-constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
-
-// Layout of the packed weights, decided by the Python wrapper: for layer l,
-// W^T [k, fpad] at w_off and the bias [fpad] at b_off (floats), zero-padded
-// from f to fpad (128 or 256) outputs.
-struct MlpLayout {
-  int n_layers;
-  int k[MAX_LAYERS];
-  int f[MAX_LAYERS];
-  int fpad[MAX_LAYERS];
-  int w_off[MAX_LAYERS];
-  int b_off[MAX_LAYERS];
-};
+static_assert(TH * TW == P, "a tile is the MLP stage's P pixels");
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.f), 1.f);
@@ -73,90 +55,6 @@ __device__ __forceinline__ float linspace_at(float start, float stop, int num,
   if (i == num - 1) return stop;
   const float t = __fdiv_rn((float)i, (float)(num - 1));
   return __fadd_rn(__fmul_rn(start, __fsub_rn(1.f, t)), __fmul_rn(stop, t));
-}
-
-__device__ __forceinline__ void stage_chunk(float* dst, const float* src,
-                                            int rows, int fpad) {
-  const int n4 = rows * fpad / 4;
-  for (int i = threadIdx.x; i < n4; i += NT) {
-    __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
-  }
-  __pipeline_commit();
-}
-
-// out[f, p] = act(sum_k w[k, f] * in[k, p] + b[f]) for f < 128 * NH, p < P.
-// Thread t owns features {fg*4 .. fg*4+3} (+128 when NH == 2) and pixels
-// {pg*4 .. pg*4+3, 32+pg*4 .. 32+pg*4+3}, fg = t / 8, pg = t % 8: a warp then
-// reads 4 distinct weight vectors and 8 distinct activation vectors per k.
-template <int NH>
-__device__ void mlp_layer(const float* __restrict__ in,
-                          float* __restrict__ out,
-                          const float* __restrict__ w,
-                          const float* __restrict__ b, int K, bool relu,
-                          float* wbuf) {
-  constexpr int FP = 128 * NH;
-  const int fg = threadIdx.x >> 3;
-  const int pg = threadIdx.x & 7;
-  float acc[4 * NH][8];
-#pragma unroll
-  for (int i = 0; i < 4 * NH; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nchunk = (K + KC - 1) / KC;
-  stage_chunk(wbuf, w, min(KC, K), FP);
-  for (int c = 0; c < nchunk; ++c) {
-    const int k0 = c * KC;
-    const int rows = min(KC, K - k0);
-    if (c + 1 < nchunk) {
-      stage_chunk(wbuf + ((c + 1) & 1) * KC * FMAX, w + (size_t)(k0 + KC) * FP,
-                  min(KC, K - k0 - KC), FP);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const float* ws = wbuf + (c & 1) * KC * FMAX;
-#pragma unroll 4
-    for (int kk = 0; kk < rows; ++kk) {
-      const float4* wrow = reinterpret_cast<const float4*>(ws + kk * FP);
-      const float4* hrow = reinterpret_cast<const float4*>(in + (k0 + kk) * P);
-      float a[4 * NH];
-      float h[8];
-      float4 v = wrow[fg];
-      a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-      if constexpr (NH == 2) {
-        v = wrow[32 + fg];
-        a[4] = v.x; a[5] = v.y; a[6] = v.z; a[7] = v.w;
-      }
-      v = hrow[pg];
-      h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
-      v = hrow[8 + pg];
-      h[4] = v.x; h[5] = v.y; h[6] = v.z; h[7] = v.w;
-#pragma unroll
-      for (int i = 0; i < 4 * NH; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], h[j], acc[i][j]);
-      }
-    }
-    __syncthreads();  // every thread is done with this buffer before reuse
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4 * NH; ++i) {
-    const int f = (i < 4) ? fg * 4 + i : 128 + fg * 4 + (i - 4);
-    const float bias = b[f];
-    float r[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      r[j] = acc[i][j] + bias;
-      if (relu) r[j] = fmaxf(r[j], 0.f);
-    }
-    float4* orow = reinterpret_cast<float4*>(out + f * P);
-    orow[pg] = make_float4(r[0], r[1], r[2], r[3]);
-    orow[8 + pg] = make_float4(r[4], r[5], r[6], r[7]);
-  }
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -214,34 +112,10 @@ fused_psf_render_kernel(const float* __restrict__ img,
       act0[2 * P + t] = pz;
       act0[3 * P + t] = fz;
     }
-    float* cur = act0;
-    float* nxt = act1;
-    for (int l = 0; l < L.n_layers; ++l) {
-      const bool relu = l + 1 < L.n_layers;
-      const float* w = wpack + L.w_off[l];
-      const float* b = wpack + L.b_off[l];
-      if (L.fpad[l] == 256) {
-        mlp_layer<2>(cur, nxt, w, b, L.k[l], relu, wbuf);
-      } else {
-        mlp_layer<1>(cur, nxt, w, b, L.k[l], relu, wbuf);
-      }
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-    __syncthreads();
+    float* cur = mlp_forward(L, wpack, act0, act1, wbuf);
 
-    // Sigmoid, then division by the L1 sum + 1e-12, per pixel.
-    if (t < P) {
-      float sum = 0.f;
-      for (int f = 0; f < taps; ++f) {
-        const float v = 1.f / (1.f + expf(-cur[f * P + t]));
-        cur[f * P + t] = v;
-        sum += fabsf(v);
-      }
-      const float denom = sum + 1e-12f;
-      for (int f = 0; f < taps; ++f) cur[f * P + t] = cur[f * P + t] / denom;
-    }
+    // Sigmoid, then division by the L1 sum + 1e-12, per pixel, in place.
+    sigmoid_l1(cur, cur, taps, 1, P);
     __syncthreads();
 
     // out[c, y, x] = sum_ij halo[c, y+i, x+j] * psf[i*ks+j, pixel]
@@ -279,29 +153,16 @@ int aadff_fused_psf_render(const float* img, const float* depth,
                            const int* layout, int n_layers, float* out, int N,
                            int S, int C, int H, int W, int ks, float d_min,
                            float d_max, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || N < 1 || S < 1 || C < 1 ||
-      H < 1 || W < 1 || ks < 1 || (ks & 1) == 0) {
+  if (N < 1 || S < 1 || C < 1 || H < 1 || W < 1 || ks < 1 || (ks & 1) == 0) {
     return (int)cudaErrorInvalidValue;
   }
   MlpLayout L;
-  L.n_layers = n_layers;
-  for (int l = 0; l < n_layers; ++l) {
-    L.k[l] = layout[5 * l];
-    L.f[l] = layout[5 * l + 1];
-    L.fpad[l] = layout[5 * l + 2];
-    L.w_off[l] = layout[5 * l + 3];
-    L.b_off[l] = layout[5 * l + 4];
-    const bool ok = L.k[l] >= 1 && L.k[l] <= FMAX &&
-                    (L.fpad[l] == 128 || L.fpad[l] == 256) &&
-                    L.f[l] >= 1 && L.f[l] <= L.fpad[l] &&
-                    (l == 0 ? L.k[l] == 4 : L.k[l] == L.f[l - 1]) &&
-                    L.w_off[l] % 4 == 0 && L.b_off[l] % 4 == 0;
-    if (!ok) return (int)cudaErrorInvalidValue;
-  }
+  const int rc = parse_layout(layout, n_layers, &L);
+  if (rc != 0) return rc;
   if (L.f[n_layers - 1] != ks * ks) return (int)cudaErrorInvalidValue;
 
   const size_t smem =
-      sizeof(float) * ((size_t)2 * FMAX * P + (size_t)2 * KC * FMAX +
+      sizeof(float) * ((size_t)MLP_SMEM_FLOATS +
                        (size_t)C * (TH + ks - 1) * (TW + ks - 1));
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(

@@ -44,3 +44,21 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             momentum=0.0, eps=self.eps)
+
+
+# `jax.image.resize` and `F.interpolate(..., align_corners=False)` agree when
+# they upsample (half-pixel centres, edge samples clamped).  When it
+# downsamples, JAX widens the kernel to antialias and torch does not; every
+# call in the DFV models upsamples.
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """x [N, C, H, W] -> bilinear resize of (H, W) to `size` (the port of
+    `aadff_tpu/models/layers.py:resize_bilinear`, channels first)."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear",
+                         align_corners=False)
+
+
+def resize_trilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """x [N, C, D, H, W] -> trilinear resize of (D, H, W) to `size` (the port
+    of `aadff_tpu/models/layers.py:resize_trilinear`, channels first)."""
+    return F.interpolate(x, size=tuple(size), mode="trilinear",
+                         align_corners=False)

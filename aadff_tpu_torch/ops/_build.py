@@ -3,8 +3,8 @@ load it with ctypes.
 
 The library has a C interface and includes no PyTorch header, so nvcc builds
 it in seconds.  It is built at first use into `build/aadff_tpu_torch/` under
-the repository root and rebuilt when a source or a flag changes (a stamp file
-holds their hash).  Nothing here runs at import time.
+the repository root and rebuilt when a source, a header or a flag changes (a
+stamp file holds their hash).  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -17,11 +17,13 @@ import time
 from pathlib import Path
 
 _ROOT = Path(__file__).resolve().parents[2]
-SOURCES = (Path(__file__).resolve().parents[1] / "csrc" / "fused_psf_render.cu",)
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (_CSRC / "fused_psf_render.cu", _CSRC / "mlp_psf.cu")
+HEADERS = (_CSRC / "mlp_tile.cuh",)  # included by the sources
 BUILD_DIR = _ROOT / "build" / "aadff_tpu_torch"
 LIBRARY = BUILD_DIR / "libaadff_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -40,7 +42,7 @@ def nvcc() -> str:
 
 def _stamp() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()
 
@@ -56,15 +58,31 @@ def build() -> dict:
     if LIBRARY.exists() and stamp_file.exists() and stamp_file.read_text() == stamp:
         return {"path": str(LIBRARY), "built": False, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"tmp{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    tmp = LIBRARY.with_suffix(f".so.{tag}")
+    exe = nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once; then one link
+    procs = [subprocess.Popen([exe, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(SOURCES, objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [exe, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        failed = [link.returncode] if link.returncode != 0 else []
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(logs)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, LIBRARY)
     stamp_file.write_text(stamp)
     return {"path": str(LIBRARY), "built": True, "seconds": seconds, "log": log}
@@ -79,6 +97,8 @@ def kernels() -> ctypes.CDLL:
         lib.aadff_fused_psf_render.argtypes = [
             p, p, p, p, ctypes.POINTER(i), i, p, i, i, i, i, i, i, f, f, p]
         lib.aadff_fused_psf_render.restype = i
+        lib.aadff_mlp_psf.argtypes = [p, p, ctypes.POINTER(i), i, p, i, p]
+        lib.aadff_mlp_psf.restype = i
         lib.aadff_error_string.argtypes = [i]
         lib.aadff_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -92,7 +92,9 @@ def pack_mlp_weights(mlp: MLP) -> tuple[torch.Tensor, list[int]]:
     return torch.cat(chunks).float().contiguous(), layout
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
+def check_tensor(name: str, t: torch.Tensor, shape: tuple,
+                 device: torch.device):
+    """Raise unless t is a contiguous f32 tensor of `shape` on `device`."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -121,11 +123,11 @@ def fused_psf_render(mlp: MLP, img: torch.Tensor, depth_mm: torch.Tensor,
     if img.device.type != "cuda":
         raise ValueError(f"no fused render for device {img.device}")
     dev = img.device
-    _check("img", img, (N, C, H, W), dev)
-    _check("depth_mm", depth_mm, (N, H, W), dev)
-    _check("focus_mm", focus_mm, (N, S), dev)
+    check_tensor("img", img, (N, C, H, W), dev)
+    check_tensor("depth_mm", depth_mm, (N, H, W), dev)
+    check_tensor("focus_mm", focus_mm, (N, S), dev)
     wpack, layout = pack_mlp_weights(mlp)
-    _check("weights", wpack, tuple(wpack.shape), dev)
+    check_tensor("weights", wpack, tuple(wpack.shape), dev)
     if layout[-4] != ks * ks:
         raise ValueError(f"MLP has {layout[-4]} outputs, expected {ks * ks}")
 

@@ -4,15 +4,28 @@
 
 The port takes `sensor_res` directly and builds no ray-traced `Lens`.  Units
 are the reference's: depths and focus distances in negative millimetres,
-normalised over [d_min, d_max] = [-DMIN, -DMAX] and clipped to [0, 1].  On a
-CUDA device every render goes through the fused kernel, at any resolution.
+normalised over [d_min, d_max] = [-DMIN, -DMAX] and clipped to [0, 1].
+
+Routes, chosen per frame as `psfnet.py:583,642` choose them:
+  * a frame of the sensor's size goes through the fused render
+    (`ops/fused_render.py`: field -> MLP -> per-pixel convolution in one
+    kernel, the whole stack in one launch);
+  * any other frame takes the two-stage route: `psf_field` -> the PSF MLP
+    (`ops/mlp_psf.py`) -> `ops/render.py:local_psf_render`, one frame of the
+    stack at a time as `lax.map` does.
+The JAX package also sends a sensor-sized frame down the two-stage route
+when the TPU's tiles do not divide it (`fused_tile_height`); the CUDA fused
+kernel takes any H x W, so the port does not.  On a CPU tensor both routes
+run their plain PyTorch versions.
 """
 from __future__ import annotations
 
 import torch
 
 from ..constants import DMAX, DMIN
-from ..ops.fused_render import fused_psf_render
+from ..ops.fused_render import fused_psf_render, psf_field
+from ..ops.mlp_psf import mlp_psf
+from ..ops.render import local_psf_render
 from ..utils import flax_msgpack
 from .arch import MLP
 from .convert import flax_mlp_to_torch_state
@@ -45,6 +58,15 @@ class PSFNet:
         psf = self.model(self._tensor(inp))
         return psf.reshape(*psf.shape[:-1], self.kernel_size, self.kernel_size)
 
+    @torch.no_grad()
+    def _render_two_stage(self, img, depth, foc) -> torch.Tensor:
+        """img [N, C, H, W], depth [N, H, W], foc [N] -> [N, C, H, W]."""
+        N, C, H, W = img.shape
+        ks = self.kernel_size
+        field = psf_field(depth, foc, self.d_min, self.d_max)
+        psf = mlp_psf(self.model, field.reshape(-1, 4))
+        return local_psf_render(img, psf.reshape(N, H, W, ks, ks), ks)
+
     def render_stack(self, img, depth, focus_dists) -> torch.Tensor:
         """img [B, C, H, W]; depth [B, 1, H, W] mm (<0); focus_dists [B, S]
         mm (<0) -> [B, S, C, H, W]."""
@@ -52,8 +74,11 @@ class PSFNet:
         B, C, H, W = img.shape
         depth = self._tensor(depth).reshape(B, H, W)
         focus = self._tensor(focus_dists).reshape(B, -1)
-        return fused_psf_render(self.model, img, depth, focus,
-                                self.kernel_size, self.d_min, self.d_max)
+        if (H, W) == self.sensor_res:
+            return fused_psf_render(self.model, img, depth, focus,
+                                    self.kernel_size, self.d_min, self.d_max)
+        return torch.stack([self._render_two_stage(img, depth, focus[:, s])
+                            for s in range(focus.shape[1])], dim=1)
 
     def render(self, img, depth, foc_dist) -> torch.Tensor:
         """img [N, C, H, W] (or [C, H, W]); depth [N, 1, H, W] or [N, H, W] mm
@@ -64,8 +89,12 @@ class PSFNet:
         foc = self._tensor(foc_dist).reshape(-1, 1)
         return self.render_stack(img, depth, foc)[:, 0]
 
-    def render_path(self) -> str:
-        """Label of the path render()/render_stack() take on this device."""
-        if self.device.type == "cuda":
+    def render_path(self, res=None) -> str:
+        """Label of the route render()/render_stack() take on this device for
+        frames of size `res` (default: the sensor resolution)."""
+        res = self.sensor_res if res is None else tuple(res)
+        if self.device.type != "cuda":
+            return "torch-mlp+taploop(f32)"
+        if res == self.sensor_res:
             return "fused-mlp+conv(f32,cuda)"
-        return "torch-mlp+taploop(f32)"
+        return "mlp-psf(f32,cuda)+taploop"

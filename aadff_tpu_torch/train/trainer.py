@@ -1,6 +1,7 @@
-"""AiF training engine (the port of `aadff_tpu/train/trainer.py`):
-`render_focal_stack` :170-189, the train step `_aif_step_body` :68-112 with
-its non-finite guard `guard_nonfinite` :57-65, `make_aif_eval_step` :159-167
+"""DFF training engine (the port of `aadff_tpu/train/trainer.py`):
+`render_focal_stack` :170-189, the AiF train step `_aif_step_body` :68-112
+with its non-finite guard `guard_nonfinite` :57-65 (`guarded_step`, which
+the DFV step of `train/dff_dfv.py` shares), `make_aif_eval_step` :159-167
 and the checkpoints :274-287.
 
 JAX's train state is immutable; here `TrainState` holds the model and the
@@ -16,8 +17,9 @@ import os
 from dataclasses import dataclass
 
 import torch
+from torch import nn
 
-from ..models.aifnet import AiFDepthNet, compute_loss
+from ..models.aifnet import compute_loss
 
 
 class Adam:
@@ -64,47 +66,63 @@ class Adam:
 
 @dataclass
 class TrainState:
-    model: AiFDepthNet
+    model: nn.Module
     opt: Adam
     step: torch.Tensor
 
 
-def create_train_state(model: AiFDepthNet, lr: float,
+def create_train_state(model: nn.Module, lr: float,
                        decay_steps: int) -> TrainState:
+    """The train state of any DFF model (AiFDepthNet, DFVNet): Adam over
+    its parameters with the cosine schedule, and a step count of 0."""
     device = next(model.parameters()).device
     return TrainState(model=model, opt=Adam(model.parameters(), lr, decay_steps),
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def guarded_step(state: TrainState, loss_fn) -> dict:
+    """One train step with the non-finite guard (`guard_nonfinite`, shared
+    by the AiF and DFV steps of the JAX package).
+
+    `loss_fn(model)` runs the train-mode forward and returns a dict of 0-d
+    losses with the objective under "total".  A batch whose loss or gradient
+    norm is not finite leaves the parameters, the Adam moments and count and
+    the BatchNorm statistics as they were; its losses read 0 and
+    `skipped_nonfinite` 1.
+    """
+    model = state.model
+    model.train()
+    stats = list(model.buffers())
+    stats_before = [b.clone() for b in stats]
+    losses = loss_fn(model)
+    # a parameter the loss does not reach (DFVNet's coarsest projections,
+    # whose BatchNorm statistics still update) gets a zero gradient, as in JAX
+    grads = torch.autograd.grad(losses["total"], state.opt.params,
+                                allow_unused=True, materialize_grads=True)
+    gnorm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    ok = torch.isfinite(losses["total"]) & torch.isfinite(gnorm)
+    state.opt.step(grads, ok)
+    with torch.no_grad():
+        for b, before in zip(stats, stats_before):
+            b.copy_(torch.where(ok, b, before))
+        state.step += 1
+    losses = {k: torch.where(ok, v.detach(), 0.0) for k, v in losses.items()}
+    losses["skipped_nonfinite"] = (~ok).float()
+    return losses
+
+
 def make_aif_train_step(task: str, disp_w: float = 1.0, aif_w: float = 0.0,
                         smooth_w: float = 0.0):
-    """Returns train_step(state, stack, focus_dists, depth, aif) -> losses.
+    """Returns train_step(state, stack, focus_dists, depth, aif) -> losses,
+    guarded as `guarded_step` says.
 
-    stack [B, S, H, W, C]; depth and aif NCHW like the reference.  A batch
-    whose loss or gradient norm is not finite leaves the parameters, the
-    Adam moments and count and the BatchNorm statistics as they were; its
-    losses read 0 and `skipped_nonfinite` 1.
+    stack [B, S, H, W, C]; depth and aif NCHW like the reference.
     """
 
     def train_step(state: TrainState, stack, focus_dists, depth, aif):
-        model = state.model
-        model.train()
-        stats = list(model.buffers())
-        stats_before = [b.clone() for b in stats]
-        out = model(stack, focus_dists)
-        losses = compute_loss(out, {"depth": depth, "AiF_img": aif}, task,
-                              disp_w=disp_w, aif_w=aif_w, smooth_w=smooth_w)
-        grads = torch.autograd.grad(losses["total"], state.opt.params)
-        gnorm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-        ok = torch.isfinite(losses["total"]) & torch.isfinite(gnorm)
-        state.opt.step(grads, ok)
-        with torch.no_grad():
-            for b, before in zip(stats, stats_before):
-                b.copy_(torch.where(ok, b, before))
-            state.step += 1
-        losses = {k: torch.where(ok, v.detach(), 0.0) for k, v in losses.items()}
-        losses["skipped_nonfinite"] = (~ok).float()
-        return losses
+        return guarded_step(state, lambda model: compute_loss(
+            model(stack, focus_dists), {"depth": depth, "AiF_img": aif},
+            task, disp_w=disp_w, aif_w=aif_w, smooth_w=smooth_w))
 
     return train_step
 

@@ -18,7 +18,9 @@ PORT_FILES = sorted(
 
 def test_importing_the_port_loads_no_jax():
     code = ("import aadff_tpu_torch, aadff_tpu_torch.train.trainer, "
-            "aadff_tpu_torch.psfnet.psfnet, sys; "
+            "aadff_tpu_torch.train.dff_dfv, aadff_tpu_torch.psfnet.psfnet, "
+            "aadff_tpu_torch.ops.mlp_psf, aadff_tpu_torch.models.dfv.convert, "
+            "sys; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'flax', 'msgpack', 'aadff_tpu.'))]; "
             "assert not bad, bad")

@@ -16,8 +16,10 @@ from flax.serialization import msgpack_restore
 from aadff_tpu.ops.pallas_render import fused_render_stack
 from aadff_tpu.ops.render import local_psf_render as jax_local_psf_render
 from aadff_tpu.psfnet import MLP as JaxMLP
-from aadff_tpu_torch.ops import fused_render
+from aadff_tpu.psfnet import PSFNet as JaxPSFNet
+from aadff_tpu_torch.ops import fused_render, mlp_psf
 from aadff_tpu_torch.ops.render import local_psf_render
+from aadff_tpu_torch.psfnet import psfnet
 from aadff_tpu_torch.psfnet.arch import MLP
 from aadff_tpu_torch.psfnet.convert import flax_mlp_to_torch_state
 from aadff_tpu_torch.psfnet.psfnet import PSFNet
@@ -25,6 +27,7 @@ from aadff_tpu_torch.psfnet.psfnet import PSFNet
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PSFNET_CKPT = os.path.join(REPO, "ckpt", "rf50mm", "psfnet_480x640_ks11.msgpack")
 RENDER_GOLDENS = os.path.join(REPO, "tests", "goldens", "render_goldens.npz")
+LENS = os.path.join(REPO, "lenses", "rf50mm.json")
 D_MIN, D_MAX = -200.0, -20000.0  # PSFNet's normalisation endpoints
 
 
@@ -39,6 +42,24 @@ def torch_mlp(flax_variables):
     mlp = MLP()
     mlp.load_state_dict(flax_mlp_to_torch_state(flax_variables))
     return mlp.requires_grad_(False)
+
+
+@pytest.fixture
+def route_spy(monkeypatch):
+    """Counts the calls PSFNet makes to the fused render and to the PSF MLP
+    wrapper of the two-stage route."""
+    calls = {"fused": 0, "mlp_psf": 0}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(psfnet, "fused_psf_render",
+                        spy("fused", fused_render.fused_psf_render))
+    monkeypatch.setattr(psfnet, "mlp_psf", spy("mlp_psf", mlp_psf.mlp_psf))
+    return calls
 
 
 def _random_mlp(seed):
@@ -134,14 +155,18 @@ def test_render_stack_matches_jax_fused_kernel():
     np.testing.assert_allclose(ours, ref, atol=5e-6)
 
 
-def test_psfnet_render_golden():
+def test_psfnet_render_golden(route_spy):
     """PSFNet.render on render_goldens.npz with the converted checkpoint:
     `rendered` < 2e-4 and `psf_field_sample` within 1e-5, the tolerances of
-    test_psfnet_render.py:143,156."""
+    test_psfnet_render.py:143,156.  The 120x160 golden on the 480x640
+    PSFNet is not a sensor-sized frame, so it takes the two-stage route
+    field -> mlp_psf -> local_psf_render, as in the JAX package
+    (psfnet.py:591-614)."""
     g = np.load(RENDER_GOLDENS)
     net = PSFNet(kernel_size=11, sensor_res=(480, 640), device="cpu")
     net.load_net(PSFNET_CKPT)
     out = net.render(g["img"], g["depth"], g["foc"]).numpy()
+    assert route_spy == {"fused": 0, "mlp_psf": 1}
     assert np.abs(out - g["rendered"]).max() < 2e-4
 
     H, W = g["img"].shape[2:]
@@ -210,4 +235,66 @@ def test_pack_mlp_weights_layout(torch_mlp):
 
 
 def test_render_path_label():
-    assert PSFNet(device="cpu").render_path() == "torch-mlp+taploop(f32)"
+    """The label names the route a frame of the given size takes."""
+    net = PSFNet(device="cpu")
+    assert net.render_path() == "torch-mlp+taploop(f32)"
+    assert net.render_path((120, 160)) == "torch-mlp+taploop(f32)"
+    net.device = torch.device("cuda")  # the label only; nothing runs
+    assert net.render_path() == "fused-mlp+conv(f32,cuda)"
+    assert net.render_path((120, 160)) == "mlp-psf(f32,cuda)+taploop"
+
+
+def test_sensor_sized_frames_take_the_fused_route(route_spy, torch_mlp):
+    net = PSFNet(device="cpu", sensor_res=(12, 10))
+    net.model = torch_mlp
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0, 1, (2, 3, 12, 10)).astype(np.float32)
+    depth = -rng.uniform(500, 15000, (2, 1, 12, 10)).astype(np.float32)
+    net.render_stack(img, depth, np.full((2, 3), -900.0, np.float32))
+    net.render(img, depth, np.full(2, -900.0, np.float32))
+    assert route_spy == {"fused": 2, "mlp_psf": 0}
+
+
+def _off_sensor_case(seed):
+    rng = np.random.default_rng(seed)
+    S, H, W = 3, 32, 48
+    img = rng.uniform(0, 1, (2, 3, H, W)).astype(np.float32)
+    depth = -rng.uniform(500, 15000, (2, 1, H, W)).astype(np.float32)
+    focus = -np.sort(rng.uniform(500, 15000, (2, S)))[:, ::-1].astype(np.float32)
+    return img, depth, focus
+
+
+def test_off_sensor_stack_is_the_frame_loop(route_spy, torch_mlp):
+    """render_stack at 32x48 on a 480x640 PSFNet renders frame by frame
+    through the two-stage route (one mlp_psf call per frame, as lax.map
+    does): it equals the per-frame render loop within 1e-6, and the fused
+    route's plain version on the same inputs within 1e-6."""
+    net = PSFNet(device="cpu", sensor_res=(480, 640))
+    net.model = torch_mlp
+    img, depth, focus = _off_sensor_case(8)
+    stack = net.render_stack(img, depth, focus)
+    assert route_spy == {"fused": 0, "mlp_psf": 3}
+    for s in range(3):
+        frame = net.render(img, depth, focus[:, s])
+        np.testing.assert_allclose(frame.numpy(), stack[:, s].numpy(),
+                                   atol=1e-6)
+    fused = fused_render.fused_psf_render_reference(
+        torch_mlp, torch.from_numpy(img), torch.from_numpy(depth[:, 0]),
+        torch.from_numpy(focus), 11, net.d_min, net.d_max)
+    np.testing.assert_allclose(stack.numpy(), fused.numpy(), atol=1e-6)
+
+
+def test_off_sensor_stack_matches_jax_pallas_mlp_route(torch_mlp):
+    """The JAX package's two-stage route with its Pallas MLP kernel in
+    interpret mode (render_stack, use_pallas=True, at a resolution other
+    than the sensor's) against the port's, within the 5e-6 of
+    test_pallas.py:98 (f32 summation order)."""
+    lens = JaxPSFNet(LENS, kernel_size=11, sensor_res=(480, 640))
+    lens.load_net(PSFNET_CKPT)
+    img, depth, focus = _off_sensor_case(9)
+    ref = np.asarray(lens.render_stack(img, depth, focus, use_pallas=True))
+    net = PSFNet(device="cpu", sensor_res=(480, 640))
+    net.model = torch_mlp
+    ours = net.render_stack(img, depth, focus).numpy()
+    assert ours.shape == ref.shape == (2, 3, 3, 32, 48)
+    np.testing.assert_allclose(ours, ref, atol=5e-6)
