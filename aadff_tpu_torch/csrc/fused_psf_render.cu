@@ -6,6 +6,16 @@
 // (:90-192), in both of its launches: `fused_psf_render_stack` (:292-366, the
 // whole focal stack, pallas_call at :336) and `fused_psf_render` (:197-248,
 // one frame, pallas_call at :222).  The frame launch is this kernel with S=1.
+// Both of the TPU kernel's compute dtypes are here: f32 (the default) and
+// bf16 (`compute_dtype=jnp.bfloat16`, the MLP on the tensor cores), and so
+// are its diagnostic knobs (:93-101), for S = 1 as in JAX:
+//   mode 'mlponly'  the MLP, sigmoid and L1 norm only (no halo, no
+//                   convolution); the output is the first C taps;
+//   mode 'convonly' no MLP: the PSF is 0.01 * z broadcast to every tap, with
+//                   no sigmoid and no normalisation; convolution only;
+//   pipe            the MLP as two independent half-tile chains (two groups
+//                   of half the block's threads, each streaming the weights
+//                   for its half of the pixels); the same result as 'full'.
 //
 // What bounds it on an H100.  Per pixel and frame the MLP 4->64->256->8x256
 // ->121 costs 571,904 multiply-adds and the 11x11 convolution 363 more, so
@@ -16,32 +26,30 @@
 // the CUDA cores (67 TFLOP/s), 11 ms in TF32 and 5.7 ms in bf16 on the tensor
 // cores (495 / 989 TFLOP/s, dense, H100 SXM at 700 W).
 //
-// What this first design does about it.  Nothing but the field inputs, the
-// image halo and the output pixels touches device memory: the [H,W,121] PSF
-// field and every hidden activation live in shared memory.
-//  * One block owns a tile of TH x TW = 64 pixels of one image and loops over
-//    the S frames, so the edge-replicated (TH+10) x (TW+10) x C image halo is
+// What this design does about it.  Nothing but the field inputs, the image
+// halo and the output pixels touches device memory: the [H,W,121] PSF field
+// and every hidden activation live in shared memory.
+//  * One block owns a tile of TH x TW pixels of one image (4 x 16 with 256
+//    threads in f32, 8 x 16 with 512 threads in bf16) and loops over the S
+//    frames, so the edge-replicated (TH+10) x (TW+10) x C image halo is
 //    loaded once for all frames (the TPU kernel's reuse).  Only foc_z differs
 //    between frames; x, y and z are computed once per pixel.
-//  * The MLP stage is mlp_tile.cuh, shared with mlp_psf.cu: activations
-//    ping-pong between two [256 x 64] f32 buffers in dynamic shared memory
-//    (64 KB each); each layer is a small GEMM out[f,p] = sum_k W^T[k,f] *
-//    in[k,p] in which each of the 256 threads keeps an (8 features x 8
-//    pixels) tile of sums in registers, so a k step is four 16-byte shared
-//    loads for 64 FMAs.  Weights are read through L2 in chunks of 32 rows,
-//    staged into shared memory with cp.async, double-buffered so the next
-//    chunk's copy overlaps the current chunk's FMAs.
-//  * Plain f32 FMA on the CUDA cores.  TF32/bf16 tensor cores (wgmma) and
-//    TMA are later work; the bound above says what they are worth.
+//  * The MLP stage is mlp_tile.cuh, shared with mlp_psf.cu: f32 FMA on the
+//    CUDA cores, or bf16 mma.sync on the tensor cores with f32 accumulation.
+//    Either way every block streams all the weights from L2 through shared
+//    memory once per frame: 1.14 MB in bf16.  With 64 pixels a block that
+//    is 9,600 blocks x 8 frames, about 88 GB per main-path stack, more than
+//    the 5.7 ms bf16 bound can carry; the bf16 tile is therefore 128 pixels
+//    (44 GB).  Wider tiles, wgmma and TMA are the next steps.
 // The ragged edge is masked: any H x W is accepted.
 
 #include "mlp_tile.cuh"
 
 namespace {
 
-constexpr int TH = 4;             // tile rows
-constexpr int TW = 16;            // tile columns
-static_assert(TH * TW == P, "a tile is the MLP stage's P pixels");
+constexpr int TW = 16;            // tile columns; a tile has NG * GP pixels
+
+enum Mode { kFull = 0, kMlpOnly = 1, kConvOnly = 2 };
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.f), 1.f);
@@ -57,20 +65,42 @@ __device__ __forceinline__ float linspace_at(float start, float stop, int num,
   return __fadd_rn(__fmul_rn(start, __fsub_rn(1.f, t)), __fmul_rn(stop, t));
 }
 
-__global__ void __launch_bounds__(NT, 1)
+// Shared memory of one block: NG groups of Stage::kBytes (none for
+// 'convonly'), then the image halo (none for 'mlponly').
+template <class Stage, int NG, int MODE>
+size_t smem_bytes(int C, int ks) {
+  constexpr int TH = NG * Stage::GP / TW;
+  const size_t groups = MODE == kConvOnly ? 0 : (size_t)NG * Stage::kBytes;
+  const size_t halo =
+      MODE == kMlpOnly ? 0 : sizeof(float) * C * (TH + ks - 1) * (TW + ks - 1);
+  return groups + halo;
+}
+
+// A block of NG groups of Stage::GT threads owns a tile of TH x TW pixels,
+// NG * Stage::GP in all.
+template <class Stage, int NG, int MODE>
+__global__ void __launch_bounds__(NG * Stage::GT, 1)
 fused_psf_render_kernel(const float* __restrict__ img,
                         const float* __restrict__ depth,
                         const float* __restrict__ focus,
-                        const float* __restrict__ wpack, MlpLayout L,
+                        const void* __restrict__ wpack,
+                        const __grid_constant__ MlpLayout L,
                         float* __restrict__ out, int S, int C, int H, int W,
                         int ks, float d_min, float d_max) {
+  constexpr int GP = Stage::GP;
+  constexpr int GT = Stage::GT;
+  constexpr int BP = NG * GP;   // pixels of the block
+  constexpr int BT = NG * GT;   // threads of the block
+  constexpr int TH = BP / TW;
+  static_assert(TH * TW == BP, "a tile is the block's pixels");
   extern __shared__ float4 smem4[];
-  float* act0 = reinterpret_cast<float*>(smem4);
-  float* act1 = act0 + FMAX * P;
-  float* wbuf = act1 + FMAX * P;
-  float* halo = wbuf + 2 * KC * FMAX;
+  __shared__ float zpsf[BP];  // 'convonly': the PSF value of each pixel
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* halo = reinterpret_cast<float*>(
+      smem + (MODE == kConvOnly ? 0 : NG * Stage::kBytes));
 
   const int t = threadIdx.x;
+  const int grp = t / GT;
   const int n = blockIdx.z;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
@@ -81,54 +111,79 @@ fused_psf_render_kernel(const float* __restrict__ img,
   const float range = __fsub_rn(d_max, d_min);
 
   // Edge-replicated image halo, shared by all S frames.
-  for (int i = t; i < C * hh * hw; i += NT) {
-    const int c = i / (hh * hw);
-    const int r = i - c * hh * hw;
-    const int gy = min(max(y0 - pad + r / hw, 0), H - 1);
-    const int gx = min(max(x0 - pad + r % hw, 0), W - 1);
-    halo[i] = img[((size_t)n * C + c) * plane + (size_t)gy * W + gx];
+  if constexpr (MODE != kMlpOnly) {
+    for (int i = t; i < C * hh * hw; i += BT) {
+      const int c = i / (hh * hw);
+      const int r = i - c * hh * hw;
+      const int gy = min(max(y0 - pad + r / hw, 0), H - 1);
+      const int gx = min(max(x0 - pad + r % hw, 0), W - 1);
+      halo[i] = img[((size_t)n * C + c) * plane + (size_t)gy * W + gx];
+    }
   }
 
   // x, y, z of this thread's pixel (pixels past the ragged edge are clamped
   // and never stored).
   float px = 0.f, py = 0.f, pz = 0.f;
-  if (t < P) {
+  if (t < BP) {
     const int gy = min(y0 + t / TW, H - 1);
     const int gx = min(x0 + t % TW, W - 1);
     px = linspace_at(-1.f, 1.f, W, gx);
     py = linspace_at(1.f, -1.f, H, gy);
     const float d = depth[(size_t)n * plane + (size_t)gy * W + gx];
     pz = clamp01(__fdiv_rn(__fsub_rn(d, d_min), range));
+    if constexpr (MODE == kConvOnly) zpsf[t] = pz * 0.01f;
   }
   const int taps = ks * ks;
 
   for (int s = 0; s < S; ++s) {
     __syncthreads();  // the previous frame's convolution is done
-    if (t < P) {
-      const float fz =
-          clamp01(__fdiv_rn(__fsub_rn(focus[n * S + s], d_min), range));
-      act0[t] = px;
-      act0[P + t] = py;
-      act0[2 * P + t] = pz;
-      act0[3 * P + t] = fz;
+    if constexpr (MODE != kConvOnly) {
+      if (t < BP) {
+        const float fz =
+            clamp01(__fdiv_rn(__fsub_rn(focus[n * S + s], d_min), range));
+        Stage::put_field(smem + (t / GP) * Stage::kBytes, t % GP, px, py, pz,
+                         fz);
+      }
+      __syncthreads();
+      // each group runs the MLP on its pixels, then the sigmoid and the L1
+      // normalisation in place, one thread per pixel
+      const int tl = t - grp * GT;
+      float* res = Stage::run(L, wpack, smem + grp * Stage::kBytes, tl,
+                              1 + grp);
+      if (tl < GP) {
+        float* px_taps = res + tl * Stage::PSTR;
+        sigmoid_l1_px(px_taps, Stage::FSTR, px_taps, Stage::FSTR, taps);
+      }
+      __syncthreads();
     }
-    float* cur = mlp_forward(L, wpack, act0, act1, wbuf);
-
-    // Sigmoid, then division by the L1 sum + 1e-12, per pixel, in place.
-    sigmoid_l1(cur, cur, taps, 1, P);
-    __syncthreads();
 
     // out[c, y, x] = sum_ij halo[c, y+i, x+j] * psf[i*ks+j, pixel]
-    for (int i = t; i < C * P; i += NT) {
-      const int c = i / P;
-      const int p = i - c * P;
+    // ('mlponly': out[c, y, x] = psf[c, pixel])
+    for (int i = t; i < C * BP; i += BT) {
+      const int c = i / BP;
+      const int p = i - c * BP;
       const int ty = p / TW;
       const int tx = p - ty * TW;
-      const float* hb = halo + c * hh * hw + ty * hw + tx;
-      float acc = 0.f;
-      for (int a = 0; a < ks; ++a) {
-        for (int bb = 0; bb < ks; ++bb) {
-          acc = fmaf(hb[a * hw + bb], cur[(a * ks + bb) * P + p], acc);
+      const float* psf;
+      int fstr;
+      if constexpr (MODE == kConvOnly) {
+        psf = zpsf + p;
+        fstr = 0;
+      } else {
+        psf = Stage::result(smem + (p / GP) * Stage::kBytes, L.n_layers) +
+              (p % GP) * Stage::PSTR;
+        fstr = Stage::FSTR;
+      }
+      float acc;
+      if constexpr (MODE == kMlpOnly) {
+        acc = psf[c * fstr];
+      } else {
+        const float* hb = halo + c * hh * hw + ty * hw + tx;
+        acc = 0.f;
+        for (int a = 0; a < ks; ++a) {
+          for (int bb = 0; bb < ks; ++bb) {
+            acc = fmaf(hb[a * hw + bb], psf[(a * ks + bb) * fstr], acc);
+          }
         }
       }
       const int gy = y0 + ty;
@@ -140,40 +195,89 @@ fused_psf_render_kernel(const float* __restrict__ img,
   }
 }
 
+template <class Stage, int NG, int MODE>
+int launch(const float* img, const float* depth, const float* focus,
+           const void* wpack, const MlpLayout& L, float* out, int N, int S,
+           int C, int H, int W, int ks, float d_min, float d_max,
+           cudaStream_t stream) {
+  constexpr int TH = NG * Stage::GP / TW;
+  const size_t smem = smem_bytes<Stage, NG, MODE>(C, ks);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  auto kernel = fused_psf_render_kernel<Stage, NG, MODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
+  kernel<<<grid, NG * Stage::GT, smem, stream>>>(
+      img, depth, focus, wpack, L, out, S, C, H, W, ks, d_min, d_max);
+  return (int)cudaGetLastError();
+}
+
+// One group on the whole tile (Full), or two on its halves (Pipe, the
+// `pipe` diagnostic).
+template <class Full, class Pipe>
+int launch_mode(int mode, int pipe, const float* img, const float* depth,
+                const float* focus, const void* wpack, const MlpLayout& L,
+                float* out, int N, int S, int C, int H, int W, int ks,
+                float d_min, float d_max, cudaStream_t stream) {
+  static_assert(2 * Pipe::GP == Full::GP, "the same tile either way");
+#define AADFF_LAUNCH(STAGE, NG, MODE)                                          \
+  launch<STAGE, NG, MODE>(img, depth, focus, wpack, L, out, N, S, C, H, W, ks, \
+                          d_min, d_max, stream)
+  if (mode == kFull) {
+    return pipe ? AADFF_LAUNCH(Pipe, 2, kFull) : AADFF_LAUNCH(Full, 1, kFull);
+  }
+  return pipe ? AADFF_LAUNCH(Pipe, 2, kMlpOnly)
+              : AADFF_LAUNCH(Full, 1, kMlpOnly);
+#undef AADFF_LAUNCH
+}
+
 }  // namespace
 
 extern "C" {
 
 // img [N,C,H,W], depth_mm [N,H,W], focus_mm [N,S], out [N,S,C,H,W]: f32,
-// contiguous, on the current device.  layout: host array of 5 ints per layer
-// (k, f, fpad, w_off, b_off).  Launches on `stream` and returns
+// contiguous, on the current device.  wpack: the packed weights, f32 or
+// bf16 (`use_bf16` 0 or 1); layout: host array of 5 ints per layer (k, f,
+// fpad, w_off, b_off).  mode: 0 full, 1 mlponly, 2 convonly; pipe 0 or 1;
+// a mode other than full, or pipe, takes S = 1 only ('convonly' has no MLP,
+// so neither bf16 nor pipe changes it).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it does not synchronise.
 int aadff_fused_psf_render(const float* img, const float* depth,
-                           const float* focus, const float* wpack,
+                           const float* focus, const void* wpack,
                            const int* layout, int n_layers, float* out, int N,
                            int S, int C, int H, int W, int ks, float d_min,
-                           float d_max, void* stream) {
-  if (N < 1 || S < 1 || C < 1 || H < 1 || W < 1 || ks < 1 || (ks & 1) == 0) {
+                           float d_max, int use_bf16, int mode, int pipe,
+                           void* stream) {
+  if (N < 1 || S < 1 || C < 1 || H < 1 || W < 1 || ks < 1 || (ks & 1) == 0 ||
+      mode < kFull || mode > kConvOnly || (use_bf16 != 0 && use_bf16 != 1) ||
+      (pipe != 0 && pipe != 1) || ((mode != kFull || pipe) && S != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   MlpLayout L;
-  const int rc = parse_layout(layout, n_layers, &L);
+  const int rc = parse_layout(layout, n_layers, use_bf16 ? 8 : 4, &L);
   if (rc != 0) return rc;
-  if (L.f[n_layers - 1] != ks * ks) return (int)cudaErrorInvalidValue;
+  const int taps = ks * ks;
+  if (L.f[n_layers - 1] != taps || C > taps) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (use_bf16 && L.fpad[n_layers - 1] != 128) {
+    return (int)cudaErrorInvalidValue;  // the f32 rows of the last layer
+  }
 
-  const size_t smem =
-      sizeof(float) * ((size_t)MLP_SMEM_FLOATS +
-                       (size_t)C * (TH + ks - 1) * (TW + ks - 1));
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_psf_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
-  fused_psf_render_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      img, depth, focus, wpack, L, out, S, C, H, W, ks, d_min, d_max);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode == kConvOnly) {
+    return launch<F32Full, 1, kConvOnly>(img, depth, focus, wpack, L, out, N,
+                                         S, C, H, W, ks, d_min, d_max, st);
+  }
+  if (use_bf16) {
+    return launch_mode<Bf16Full, Bf16Pipe>(mode, pipe, img, depth, focus,
+                                           wpack, L, out, N, S, C, H, W, ks,
+                                           d_min, d_max, st);
+  }
+  return launch_mode<F32Full, F32Pipe>(mode, pipe, img, depth, focus, wpack,
+                                       L, out, N, S, C, H, W, ks, d_min, d_max,
+                                       st);
 }
 
 const char* aadff_error_string(int code) {

@@ -7,6 +7,11 @@ pin torch's geometry (`layers.py:23-103`), so the port uses `nn.Conv3d`,
 BatchNorm's running statistics: Flax keeps `momentum * old + (1 - momentum)
 * batch` with momentum 0.9 and the *biased* batch variance, where
 `nn.BatchNorm3d` uses momentum 0.1 on the new value and the unbiased one.
+
+A compute dtype (`dtype=torch.bfloat16`, Flax's `dtype` on `TorchConv`,
+`TorchConvTranspose` and `nn.BatchNorm`) keeps the parameters in f32 and
+casts them at use: `conv` computes in the input's cast, and BatchNorm takes
+its statistics in f32 and returns the input's dtype.
 """
 from __future__ import annotations
 
@@ -30,6 +35,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # statistics and the normalisation in f32, the result in x's dtype,
+        # as Flax's BatchNorm(dtype=bf16) does (`_compute_stats` promotes to
+        # f32); for an f32 input both casts are no-ops
+        dtype = x.dtype
+        x = x.float()
         if self.training:
             with torch.no_grad():
                 dims = [0, *range(2, x.dim())]
@@ -39,11 +49,27 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(self.momentum).add_(
                     (1 - self.momentum) * var)
             # normalises with the biased batch variance, as Flax does
-            return F.batch_norm(x, None, None, self.weight, self.bias,
-                                training=True, momentum=0.0, eps=self.eps)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            momentum=0.0, eps=self.eps)
+            y = F.batch_norm(x, None, None, self.weight, self.bias,
+                             training=True, momentum=0.0, eps=self.eps)
+        else:
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, training=False,
+                             momentum=0.0, eps=self.eps)
+        return y.to(dtype)
+
+
+def conv(module: nn.Module, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """`module` (an nn.Conv3d or nn.ConvTranspose3d) applied to x, in
+    `dtype` when it is given: input, kernel and bias are cast at use and the
+    f32 parameters stay as they are."""
+    if dtype is None:
+        return module(x)
+    w, b = module.weight.to(dtype), module.bias.to(dtype)
+    if isinstance(module, nn.ConvTranspose3d):
+        return F.conv_transpose3d(x.to(dtype), w, b, module.stride,
+                                  module.padding, module.output_padding,
+                                  module.groups, module.dilation)
+    return module._conv_forward(x.to(dtype), w, b)
 
 
 # `jax.image.resize` and `F.interpolate(..., align_corners=False)` agree when

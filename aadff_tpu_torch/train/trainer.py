@@ -111,12 +111,21 @@ def guarded_step(state: TrainState, loss_fn) -> dict:
     return losses
 
 
+def trunk_dtype(args: dict):
+    """The AiFDepthNet trunk dtype that a run's args select:
+    `compute_dtype: "bf16"` gives torch.bfloat16, anything else None (f32),
+    as `aadff_tpu/train/dff_aif.py:53-57` chooses."""
+    return torch.bfloat16 if args.get("compute_dtype") == "bf16" else None
+
+
 def make_aif_train_step(task: str, disp_w: float = 1.0, aif_w: float = 0.0,
                         smooth_w: float = 0.0):
     """Returns train_step(state, stack, focus_dists, depth, aif) -> losses,
     guarded as `guarded_step` says.
 
-    stack [B, S, H, W, C]; depth and aif NCHW like the reference.
+    stack [B, S, H, W, C]; depth and aif NCHW like the reference.  The model
+    may have a bf16 trunk (`AiFDepthNet(dtype=torch.bfloat16)`): its
+    parameters, Adam's moments, the guard and the loss stay f32.
     """
 
     def train_step(state: TrainState, stack, focus_dists, depth, aif):

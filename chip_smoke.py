@@ -21,14 +21,31 @@ scenes made from the seed:
   mlp_kernel  the PSF-MLP kernel against its plain version (TF32 off): the
               field of the first batch at one focus distance (N = 614,400
               rows) and a ragged 123x161 field
+  bf16_kernels
+              both kernels with compute_dtype=bf16 (the MLP on the tensor
+              cores) against their plain bf16 versions and against the f32
+              kernels: the fused render on the main-path stack and the
+              ragged frame, the PSF MLP at N = 614,400 and N = 19,803
   two_stage   PSFNet.render of tests/goldens/render_goldens.npz (120x160 on
               the 480x640 PSFNet) and render_stack of a [2,8] stack at
-              240x320 take field -> PSF-MLP kernel -> tap loop; the stack
-              agrees with the fused kernel on the same inputs
+              240x320, in f32 and in bf16, take field -> PSF-MLP kernel ->
+              tap loop; each stack agrees with the fused kernel of its
+              dtype on the same inputs
+  frame_route PSFNet.render at 480x640 in f32 and bf16 (the fused kernel's
+              one-frame launch), and render_stack with stack_kernel=False
+              (one such launch per frame), held to the whole-stack launch
+  kernel_split
+              the fused kernel's diagnostic modes on a 480x640 frame, f32
+              and bf16: 'mlponly', 'convonly' and pipe, each against its
+              plain version, pipe against 'full'; their times split the
+              kernel into MLP and convolution
   train       3 train steps: render the focal stack through the fused
               kernel -> AiFDepthNet forward/backward -> Adam with a cosine
               schedule and the non-finite guard
   eval        one eval forward, with masked AbsRel and RMSE
+  bf16_train / bf16_eval
+              the same with PSFNet(render_dtype="bf16") (the bf16 fused
+              kernel) and the bf16 AiFDepthNet trunk (compute_dtype: bf16)
   dfv_train   3 DFVNet train steps: render through the fused kernel ->
               DFVNet forward/backward with the multi-scale loss -> Adam and
               the guard
@@ -62,11 +79,29 @@ TRAIN_STEPS = 3
 # kernel's 11-layer GEMMs k by k, cuBLAS in blocks), which moves outputs in
 # [0, 1] by a few 1e-7.  The same holds between the two render routes.
 KERNEL_TOL = 1e-5
+# bf16 kernel against its plain bf16 version: the same roundings, the f32
+# sums in another order (and the tensor cores' own accumulation).  A sum
+# next to a bf16 rounding boundary may round the other way and move every
+# later layer: single values by up to ~2e-3, the mean by ~1e-7 on PSF rows
+# and on smooth scenes, and by ~2e-6 on a frame of uniform noise, whose
+# pixels do not cancel the PSF's errors.  So both a max-abs and a mean-abs
+# bound.
+BF16_MAX_ABS = 3e-3
+BF16_MEAN_ABS = 5e-6
+# bf16 against f32, on PSF rows (tests/test_pallas.py:42) and on the
+# main-path stack.  A render of uniform noise amplifies the PSF's bf16
+# deviation (the JAX package's own bf16 render of noise deviates by up to
+# 6.8e-4 per pixel), so there it is reported and held only to differ.
+L1_PX = 5e-4
+LOOP_TOL = 1e-6             # frame loop vs stack: tests/test_pallas.py:247
 ROWSUM_TOL = 1e-5           # PSF rows sum to 1: tests/test_pallas.py:22
 GOLDEN_TOL = 2e-4           # tests/test_psfnet_render.py:143
 BUDGET_S = 1000.0           # stop before the 1200 s the run may take
 F32_FLOPS = 67e12           # H100 SXM, f32 on the CUDA cores, 700 W
+BF16_FLOPS = 989e12         # H100 SXM, bf16 on the tensor cores, dense
 HBM_BYTES_S = 3.35e12
+PEAK = {"f32": F32_FLOPS, "bf16": BF16_FLOPS}
+WEIGHT_BYTES = {"f32": 4, "bf16": 2}
 
 
 class SmokeError(RuntimeError):
@@ -103,30 +138,88 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def render_bound_ms(mlp, N, S, C, H_, W_, ks):
-    """Least time the card could take for one fused render: the larger of
-    operations over the f32 CUDA-core peak and bytes over memory bandwidth
-    (each input read once, the output written once)."""
+def _bound(t_ops, t_bytes):
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _mlp_work(mlp, dt):
+    """(multiply-adds per row, bytes of the weights and biases) in dt."""
     linears = mlp.linears()
     macs = sum(lin.in_features * lin.out_features for lin in linears)
-    ops = N * S * H_ * W_ * (2 * macs + 2 * ks * ks * C)
-    n_weights = sum(lin.weight.numel() + lin.bias.numel() for lin in linears)
-    nbytes = 4 * (N * C * H_ * W_ + N * H_ * W_ + N * S + n_weights
-                  + N * S * C * H_ * W_)
-    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    nbytes = sum(WEIGHT_BYTES[dt] * lin.weight.numel() + 4 * lin.bias.numel()
+                 for lin in linears)
+    return macs, nbytes
 
 
-def mlp_bound_ms(mlp, N):
+def render_bound_ms(mlp, N, S, C, H_, W_, ks, dt="f32", mode="full"):
+    """Least time the card could take for one fused render: the larger of
+    the operations over the peak of their type (the MLP in `dt`, the
+    convolution in f32 on the CUDA cores) and the bytes over memory
+    bandwidth (each input read once, the output written once).  'mlponly'
+    has no convolution and reads no image; 'convonly' has no MLP."""
+    macs, w_bytes = _mlp_work(mlp, dt)
+    px = N * S * H_ * W_
+    mlp_ops = 0 if mode == "convonly" else px * 2 * macs
+    conv_ops = 0 if mode == "mlponly" else px * 2 * ks * ks * C
+    nbytes = (4 * (N * H_ * W_ + N * S + N * S * C * H_ * W_)
+              + (0 if mode == "mlponly" else 4 * N * C * H_ * W_)
+              + (0 if mode == "convonly" else w_bytes))
+    return _bound(mlp_ops / PEAK[dt] + conv_ops / F32_FLOPS,
+                  nbytes / HBM_BYTES_S)
+
+
+def mlp_bound_ms(mlp, N, dt="f32"):
     """Least time the card could take for the PSF MLP on N field rows: the
-    larger of operations over the f32 CUDA-core peak and bytes over memory
+    larger of operations over the peak of `dt` and bytes over memory
     bandwidth (the field and the weights read once, the rows written once)."""
-    linears = mlp.linears()
-    ops = N * 2 * sum(lin.in_features * lin.out_features for lin in linears)
-    n_weights = sum(lin.weight.numel() + lin.bias.numel() for lin in linears)
-    nbytes = 4 * (N * 4 + n_weights + N * linears[-1].out_features)
-    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    macs, w_bytes = _mlp_work(mlp, dt)
+    taps = mlp.linears()[-1].out_features
+    return _bound(N * 2 * macs / PEAK[dt],
+                  (4 * N * (4 + taps) + w_bytes) / HBM_BYTES_S)
+
+
+def library_mlp_bf16(mlp):
+    """One cuBLAS bf16 chain computing the PSF rows (bf16 in and out of each
+    layer, the last layer cast to f32 for the sigmoid and the L1 norm): the
+    yardstick `library_ms` of the bf16 PSF-MLP kernel, never used by the
+    port."""
+    import torch  # noqa: PLC0415
+
+    params = [(lin.weight.to(torch.bfloat16), lin.bias.to(torch.bfloat16))
+              for lin in mlp.linears()]
+
+    def run(field):
+        h = field.to(torch.bfloat16)
+        for i, (w, b) in enumerate(params):
+            h = torch.nn.functional.linear(h, w, b)
+            if i + 1 < len(params):
+                h = torch.relu(h)
+        p = torch.sigmoid(h.float())
+        return p / (p.abs().sum(-1, keepdim=True) + 1e-12)
+
+    return run
+
+
+def reset_counts(*modules):
+    """Set every launch count of the kernel wrappers to 0."""
+    for mod in modules:
+        mod.launches = 0
+        mod.variant_launches.clear()
+
+
+def errors(out, ref):
+    """max-abs and mean-abs of out - ref."""
+    err = (out - ref).abs()
+    return err.max().item(), err.mean().item()
+
+
+def split_errors(vs_plain, vs_f32):
+    """{case: (max, mean)} against the plain version and against the f32
+    kernel -> the JSON fields of a bf16 phase."""
+    return {"max_abs_err": {k: v[0] for k, v in vs_plain.items()},
+            "mean_abs_err": {k: v[1] for k, v in vs_plain.items()},
+            "vs_f32_max_abs": {k: v[0] for k, v in vs_f32.items()},
+            "vs_f32_l1_px": {k: v[1] for k, v in vs_f32.items()}}
 
 
 def main():
@@ -172,7 +265,7 @@ def main():
     built = _build.build()
     _build.kernels()
     ptxas = [ln.strip() for ln in built["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
     phase("build", t0, nvcc_s=round(built["seconds"], 3), built=built["built"],
           library=os.path.relpath(built["path"], ROOT), ptxas=ptxas)
 
@@ -256,6 +349,84 @@ def main():
         check(mlp_err[name] <= KERNEL_TOL, f"{name}: kernel vs plain {mlp_err[name]:.3g}")
         check(mlp_rowsum[name] <= ROWSUM_TOL, f"{name}: row sums {mlp_rowsum[name]:.3g}")
 
+    # ---- both kernels in bf16: against their plain bf16 versions and f32 --
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    net16 = PSFNet(kernel_size=KS, sensor_res=(H, W), device=device,
+                   render_dtype="bf16")
+    net16.model = net.model
+    out32 = fused_render.fused_psf_render(*render_args)
+    out16 = fused_render.fused_psf_render(*render_args, bf16)
+    ref16 = fused_render.fused_psf_render_reference(*render_args, bf16)
+    torch.cuda.synchronize()
+    check(out16.shape == out32.shape, f"bf16 stack shape {tuple(out16.shape)}")
+    check(bool(torch.isfinite(out16).all()), "non-finite bf16 kernel output")
+    b1_16 = {"stack_2x8x3x480x640": errors(out16, ref16)}
+    b1_16_f32 = {"stack_2x8x3x480x640": errors(out16, out32)}
+    del out16, out32, ref16
+    ragged16 = fused_render.fused_psf_render(net.model, rimg, rdepth, rfocus, KS,
+                                             net.d_min, net.d_max, bf16)
+    b1_16["ragged_1x1x3x123x161"] = errors(ragged16, (
+        fused_render.fused_psf_render_reference(
+            net.model, rimg, rdepth, rfocus, KS, net.d_min, net.d_max, bf16)))
+    b1_16_f32["ragged_1x1x3x123x161"] = errors(ragged16, ragged)
+    b1_16_ms = time_ms(torch, lambda: fused_render.fused_psf_render(
+        *render_args, bf16), 5)
+    b1_16_plain_ms = time_ms(torch, lambda: (
+        fused_render.fused_psf_render_reference(*render_args, bf16)), 2)
+    b1_16_bound, b1_16_bound_by = render_bound_ms(net.model, BS, N_STACK, 3, H,
+                                                  W, KS, "bf16")
+    frame16_ms = time_ms(torch, lambda: fused_render.fused_psf_render(
+        *frame_args, bf16), 5)
+    frame16_plain_ms = time_ms(torch, lambda: (
+        fused_render.fused_psf_render_reference(*frame_args, bf16)), 3)
+    frame16_bound = render_bound_ms(net.model, 1, 1, 3, H, W, KS, "bf16")
+
+    b3_16, b3_16_f32, b3_16_rowsum = {}, {}, {}
+    for name, field in fields.items():
+        field = field.reshape(-1, 4).contiguous()
+        rows16 = mlp_psf.mlp_psf(net.model, field, bf16)
+        rows_ref16 = mlp_psf.mlp_psf_reference(net.model, field, bf16)
+        rows32 = mlp_psf.mlp_psf(net.model, field)
+        torch.cuda.synchronize()
+        check(rows16.shape == (field.shape[0], KS * KS),
+              f"{name}: {tuple(rows16.shape)}")
+        check(bool(torch.isfinite(rows16).all()), f"{name}: non-finite bf16 rows")
+        b3_16[name] = errors(rows16, rows_ref16)
+        b3_16_f32[name] = errors(rows16, rows32)
+        b3_16_rowsum[name] = (rows16.sum(-1) - 1).abs().max().item()
+    field = fields["field_614400x4"].reshape(-1, 4).contiguous()
+    library = library_mlp_bf16(net.model)
+    b3_16_library_err = errors(
+        library(field), mlp_psf.mlp_psf_reference(net.model, field, bf16))
+    b3_16_ms = time_ms(torch, lambda: mlp_psf.mlp_psf(net.model, field, bf16), 10)
+    b3_16_plain_ms = time_ms(
+        torch, lambda: mlp_psf.mlp_psf_reference(net.model, field, bf16), 5)
+    b3_16_library_ms = time_ms(torch, lambda: library(field), 10)
+    b3_16_bound, b3_16_bound_by = mlp_bound_ms(net.model, field.shape[0], "bf16")
+    del rows16, rows_ref16, rows32
+    phase("bf16_kernels", t0, tol={"max_abs": BF16_MAX_ABS,
+                                   "mean_abs": BF16_MEAN_ABS},
+          l1_px_tol=L1_PX, rowsum_tol=ROWSUM_TOL,
+          render={**split_errors(b1_16, b1_16_f32),
+                  "ms": b1_16_ms, "plain_ms": b1_16_plain_ms,
+                  "bound_ms": b1_16_bound, "bound_by": b1_16_bound_by,
+                  "frame_ms": frame16_ms, "frame_plain_ms": frame16_plain_ms,
+                  "frame_bound_ms": frame16_bound[0]},
+          mlp={**split_errors(b3_16, b3_16_f32),
+               "max_rowsum_err": b3_16_rowsum, "ms": b3_16_ms,
+               "plain_ms": b3_16_plain_ms, "library_ms": b3_16_library_ms,
+               "library_vs_plain_max_abs": b3_16_library_err[0],
+               "bound_ms": b3_16_bound, "bound_by": b3_16_bound_by})
+    for name, (mx, mean) in [*b1_16.items(), *b3_16.items()]:
+        check(mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS,
+              f"{name}: bf16 kernel vs plain max {mx:.3g}, mean {mean:.3g}")
+    for name, (mx, l1) in [*b1_16_f32.items(), *b3_16_f32.items()]:
+        check(mx > 0 and (l1 < L1_PX or name == "ragged_1x1x3x123x161"),
+              f"{name}: bf16 vs f32 kernel max {mx:.3g}, L1/px {l1:.3g}")
+    for name, err in b3_16_rowsum.items():
+        check(err <= ROWSUM_TOL, f"{name}: bf16 row sums {err:.3g}")
+
     # ---- the two-stage route: frames off the sensor's size ---------------
     t0 = time.perf_counter()
     g = np.load(RENDER_GOLDENS)
@@ -263,35 +434,139 @@ def main():
     focus2 = select_focus_dist(depth2, N_STACK, mode="linear")
     stack_args = (img2, depth2 * -1e3, focus2 * -1e3)
     torch.cuda.synchronize()
-    mlp_psf.launches = fused_render.launches = 0
+    reset_counts(fused_render, mlp_psf)
     golden = net.render(g["img"], g["depth"], g["foc"]).cpu().numpy()
     golden_launches = (mlp_psf.launches, fused_render.launches)
     two_stage = net.render_stack(*stack_args)
+    two_stage16 = net16.render_stack(*stack_args)  # render_dtype="bf16"
     torch.cuda.synchronize()
-    route_launches = mlp_psf.launches
+    route_launches = dict(mlp_psf.variant_launches)
     route_fused_launches = fused_render.launches
     err_golden = float(np.abs(golden - g["rendered"]).max())
-    fused = fused_render.fused_psf_render(
-        net.model, img2, stack_args[1][:, 0].contiguous(),
-        stack_args[2].contiguous(), KS, net.d_min, net.d_max)
-    err_routes = (two_stage - fused).abs().max().item()
+    fused_args = (net.model, img2, stack_args[1][:, 0].contiguous(),
+                  stack_args[2].contiguous(), KS, net.d_min, net.d_max)
+    err_routes = (two_stage - fused_render.fused_psf_render(
+        *fused_args)).abs().max().item()
+    err_routes16 = errors(two_stage16,
+                          fused_render.fused_psf_render(*fused_args, bf16))
     route_ms = time_ms(torch, lambda: net.render_stack(*stack_args), 2)
-    del two_stage, fused
+    route16_ms = time_ms(torch, lambda: net16.render_stack(*stack_args), 2)
+    del two_stage, two_stage16
     phase("two_stage", t0, golden_tol=GOLDEN_TOL, tol=KERNEL_TOL,
-          render_path=net.render_path((H2, W2)),
+          render_path={"f32": net.render_path((H2, W2)),
+                       "bf16": net16.render_path((H2, W2))},
           max_abs_err={"golden_vs_rendered_120x160": err_golden,
-                       f"stack_2x8x3x{H2}x{W2}_vs_fused": err_routes},
+                       f"stack_2x8x3x{H2}x{W2}_vs_fused": err_routes,
+                       f"bf16_stack_2x8x3x{H2}x{W2}_vs_fused": err_routes16[0]},
+          mean_abs_err={
+              f"bf16_stack_2x8x3x{H2}x{W2}_vs_fused": err_routes16[1]},
           golden_launches={"mlp_psf": golden_launches[0],
                            "fused_psf_render": golden_launches[1]},
           launches={"mlp_psf": route_launches,
                     "fused_psf_render": route_fused_launches},
-          stack_ms=route_ms)
+          stack_ms=route_ms, bf16_stack_ms=route16_ms)
     check(err_golden < GOLDEN_TOL, f"golden: {err_golden:.3g}")
     check(golden_launches == (1, 0), f"golden launches {golden_launches}")
-    check(route_launches == 1 + N_STACK and route_fused_launches == 0,
-          f"two-stage stack: {route_launches} PSF-MLP launches, "
+    check(route_launches == {"f32": 1 + N_STACK, "bf16": N_STACK}
+          and route_fused_launches == 0,
+          f"two-stage stacks: PSF-MLP launches {route_launches}, "
           f"{route_fused_launches} fused")
     check(err_routes <= KERNEL_TOL, f"two-stage vs fused {err_routes:.3g}")
+    check(err_routes16[0] <= BF16_MAX_ABS and err_routes16[1] <= BF16_MEAN_ABS,
+          f"bf16 two-stage vs fused {err_routes16}")
+
+    # ---- the one-frame launch on its routes: PSFNet.render at the sensor's
+    # size and render_stack with stack_kernel=False -------------------------
+    t0 = time.perf_counter()
+    depth_mm, focus_mm = depth * -1e3, focus * -1e3
+    lenses = {"f32": net, "bf16": net16}
+    torch.cuda.synchronize()
+    reset_counts(fused_render, mlp_psf)
+    frames, loops = {}, {}
+    for dt, lens in lenses.items():
+        frames[dt] = lens.render(aif, depth_mm, focus_mm[:, 2])
+        lens.stack_kernel = False
+        loops[dt] = lens.render_stack(aif, depth_mm, focus_mm)
+        lens.stack_kernel = True
+    torch.cuda.synchronize()
+    frame_counts = dict(fused_render.variant_launches)
+    frame_mlp_launches = mlp_psf.launches
+    loop_err, frame_err, loop_ms, stack_ms = {}, {}, {}, {}
+    for dt, lens in lenses.items():
+        whole = lens.render_stack(aif, depth_mm, focus_mm)  # one launch
+        loop_err[dt] = (loops[dt] - whole).abs().max().item()
+        frame_err[dt] = (frames[dt] - whole[:, 2]).abs().max().item()
+        stack_ms[dt] = time_ms(torch, lambda: lens.render_stack(
+            aif, depth_mm, focus_mm), 2)
+        lens.stack_kernel = False
+        loop_ms[dt] = time_ms(torch, lambda: lens.render_stack(
+            aif, depth_mm, focus_mm), 2)
+        lens.stack_kernel = True
+    del frames, loops, whole
+    phase("frame_route", t0, tol=LOOP_TOL,
+          launches={"fused_psf_render": frame_counts,
+                    "mlp_psf": frame_mlp_launches},
+          loop_vs_stack_max_abs=loop_err, frame_vs_stack_max_abs=frame_err,
+          loop_ms=loop_ms, stack_ms=stack_ms)
+    check(frame_counts == {"frame/f32/full": 1 + N_STACK,
+                           "frame/bf16/full": 1 + N_STACK}
+          and frame_mlp_launches == 0, f"frame-route launches {frame_counts}")
+    for dt in lenses:
+        check(loop_err[dt] <= LOOP_TOL and frame_err[dt] <= LOOP_TOL,
+              f"{dt}: frame loop vs stack {loop_err[dt]:.3g}, render vs "
+              f"stack {frame_err[dt]:.3g}")
+
+    # ---- the kernel's diagnostic modes on one 480x640 frame --------------
+    t0 = time.perf_counter()
+    modes = [(dt, mode, pipe) for dt in ("f32", "bf16")
+             for mode, pipe in (("mlponly", False), ("full", True))]
+    modes.append(("f32", "convonly", False))  # no MLP: no dtype
+    dtypes = {"f32": torch.float32, "bf16": bf16}
+    torch.cuda.synchronize()
+    reset_counts(fused_render, mlp_psf)
+    outs = {m: fused_render.fused_psf_render(*frame_args, dtypes[m[0]], *m[1:])
+            for m in modes}
+    torch.cuda.synchronize()
+    split_counts = dict(fused_render.variant_launches)
+    split = {}
+    for (dt, mode, pipe), out in outs.items():
+        args = (*frame_args, dtypes[dt], mode, pipe)
+        name = fused_render.variant(dtypes[dt], mode, pipe)
+        ref = fused_render.fused_psf_render_reference(*args)
+        rec = dict(zip(("max_abs_err", "mean_abs_err"), errors(out, ref)))
+        if pipe:
+            full = fused_render.fused_psf_render(*frame_args, dtypes[dt])
+            rec["vs_full_max_abs"] = (out - full).abs().max().item()
+        rec["ms"] = time_ms(torch, lambda: fused_render.fused_psf_render(
+            *args), 5)
+        rec["plain_ms"] = time_ms(torch, lambda: (
+            fused_render.fused_psf_render_reference(*args)), 3)
+        rec["bound_ms"], rec["bound_by"] = render_bound_ms(
+            net.model, 1, 1, 3, H, W, KS, dt, mode)
+        rec["launches"] = split_counts.get(name, 0)
+        split[name] = rec
+    del outs
+    full_ms = {"f32": frame_ms, "bf16": frame16_ms}
+    shares = {dt: {"mlponly_over_full": split[f"frame/{dt}/mlponly"]["ms"]
+                   / full_ms[dt],
+                   "convonly_over_full": split["frame/-/convonly"]["ms"]
+                   / full_ms[dt]} for dt in full_ms}
+    phase("kernel_split", t0, tol={"f32": KERNEL_TOL,
+                                   "bf16_max_abs": BF16_MAX_ABS,
+                                   "bf16_mean_abs": BF16_MEAN_ABS},
+          modes=split, full_ms=full_ms, shares=shares)
+    for name, rec in split.items():
+        check(rec["launches"] == 1, f"{name}: {rec['launches']} launches")
+        if "/bf16/" in name:
+            check(rec["max_abs_err"] <= BF16_MAX_ABS
+                  and rec["mean_abs_err"] <= BF16_MEAN_ABS,
+                  f"{name}: vs plain {rec['max_abs_err']:.3g}, "
+                  f"mean {rec['mean_abs_err']:.3g}")
+        else:
+            check(rec["max_abs_err"] <= KERNEL_TOL,
+                  f"{name}: vs plain {rec['max_abs_err']:.3g}")
+        check(rec.get("vs_full_max_abs", 0.0) == 0.0,
+              f"{name}: pipe differs from full by {rec.get('vs_full_max_abs')}")
 
     # ---- main path: train steps, then one eval forward -------------------
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
@@ -307,16 +582,17 @@ def main():
     phase("setup", t0, aifnet_checkpoint_step=ckpt_step,
           params=sum(p.numel() for p in model.parameters()))
 
-    def train_steps(scenes, step_fn):
-        """Render each scene's focal stack through the fused kernel, then
-        step_fn(stack, focus, depth, aif) -> losses; one JSON line a step."""
-        fused_render.launches = mlp_psf.launches = 0
+    def train_steps(lens, scenes, step_fn, kind="stack/f32/full"):
+        """Render each scene's focal stack through `lens` (the fused kernel,
+        variant `kind`), then step_fn(stack, focus, depth, aif) -> losses;
+        one JSON line a step."""
+        reset_counts(fused_render, mlp_psf)
         steps = []
         for i, (aif, depth) in enumerate(scenes):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
             focus = select_focus_dist(depth, N_STACK, mode="linear")
-            stack = trainer.render_focal_stack(net, aif, depth, focus)
+            stack = trainer.render_focal_stack(lens, aif, depth, focus)
             ev[1].record()
             losses = step_fn(stack, focus, depth, aif)
             ev[2].record()
@@ -325,42 +601,82 @@ def main():
                    "skipped_nonfinite": float(losses["skipped_nonfinite"]),
                    "render_ms": ev[0].elapsed_time(ev[1]),
                    "step_ms": ev[0].elapsed_time(ev[2]),
-                   "launches": fused_render.launches}
+                   "launches": dict(fused_render.variant_launches)}
             steps.append(rec)
             emit(rec)
             check(np.isfinite(rec["loss"]), f"step {i + 1}: loss {rec['loss']}")
             check(rec["skipped_nonfinite"] == 0.0, f"step {i + 1} was skipped")
-            check(fused_render.launches == i + 1,
-                  f"step {i + 1}: {fused_render.launches} kernel launches")
+            check(rec["launches"] == {kind: i + 1} and mlp_psf.launches == 0,
+                  f"step {i + 1}: kernel launches {rec['launches']}")
         return steps
 
+    def eval_once(lens, state, scene):
+        """One eval forward on a scene rendered through `lens`: masked AbsRel
+        and RMSE, checked finite."""
+        aif, depth = scene
+        focus = select_focus_dist(depth, N_STACK, mode="linear")
+        stack = trainer.render_focal_stack(lens, aif, depth, focus)
+        out = eval_step(state, stack, focus)
+        pred = out["pred_depth"]
+        mask = depth > 0
+        abs_rel = float(metrics.mask_abs_rel(pred, depth, mask))
+        rmse = float(metrics.mask_rmse(pred, depth, mask))
+        check(np.isfinite(abs_rel) and np.isfinite(rmse),
+              "non-finite eval metrics")
+        check(bool(torch.isfinite(out["pred_AiF_img"]).all()), "non-finite AiF")
+        return {"abs_rel": abs_rel, "rmse": rmse,
+                "pred_depth": list(pred.shape),
+                "pred_aif": list(out["pred_AiF_img"].shape),
+                "pred_dtype": str(pred.dtype)}
+
     t0 = time.perf_counter()
-    steps = train_steps(scenes[:TRAIN_STEPS], lambda stack, focus, depth, aif:
+    steps = train_steps(net, scenes[:TRAIN_STEPS], lambda stack, focus, depth, aif:
                         train_step(state, stack, focus, depth, aif))
     phase("train", t0, steps=len(steps), peak_gib=round(
         torch.cuda.max_memory_allocated() / 2 ** 30, 3),
         tf32_conv=torch.backends.cudnn.allow_tf32)
 
     t0 = time.perf_counter()
-    aif, depth = scenes[TRAIN_STEPS]
-    focus = select_focus_dist(depth, N_STACK, mode="linear")
-    stack = trainer.render_focal_stack(net, aif, depth, focus)
-    out = eval_step(state, stack, focus)
-    pred = out["pred_depth"]
-    mask = depth > 0
-    abs_rel = float(metrics.mask_abs_rel(pred, depth, mask))
-    rmse = float(metrics.mask_rmse(pred, depth, mask))
+    scores = eval_once(net, state, scenes[TRAIN_STEPS])
     main_launches = fused_render.launches
-    phase("eval", t0, abs_rel=abs_rel, rmse=rmse,
-          pred_depth=list(pred.shape), pred_aif=list(out["pred_AiF_img"].shape))
-    check(np.isfinite(abs_rel) and np.isfinite(rmse), "non-finite eval metrics")
-    check(bool(torch.isfinite(out["pred_AiF_img"]).all()), "non-finite AiF")
-    check(main_launches == TRAIN_STEPS + 1, f"{main_launches} launches")
-    check(mlp_psf.launches == 0, "the AiF path left the fused route")
+    phase("eval", t0, **scores)
+    check(dict(fused_render.variant_launches) == {
+        "stack/f32/full": TRAIN_STEPS + 1} and mlp_psf.launches == 0,
+        f"AiF path launches {dict(fused_render.variant_launches)}")
+
+    # ---- the bf16 main path: PSFNet(render_dtype="bf16") and the bf16
+    # AiFDepthNet trunk (compute_dtype: bf16), from the same checkpoint ----
+    t0 = time.perf_counter()
+    del model, state
+    model16 = AiFDepthNet(dtype=trainer.trunk_dtype({"compute_dtype": "bf16"}))
+    model16 = model16.to(device)
+    model16.load_state_dict(state_dict)
+    state16 = trainer.create_train_state(model16, LR, EPOCHS * TRAIN_STEPS)
+    scenes16 = [make_scenes(BS, H, W, gen, device)
+                for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps16 = train_steps(net16, scenes16[:TRAIN_STEPS],
+                          lambda stack, focus, depth, aif:
+                          train_step(state16, stack, focus, depth, aif),
+                          kind="stack/bf16/full")
+    phase("bf16_train", t0, steps=len(steps16), render_dtype=net16.render_dtype,
+          trunk_dtype=str(model16.dtype),
+          param_dtypes=sorted({str(p.dtype) for p in model16.parameters()}),
+          peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3))
+    check(all(p.dtype == torch.float32 for p in model16.parameters()),
+          "the bf16 trunk's parameters left f32")
+
+    t0 = time.perf_counter()
+    scores16 = eval_once(net16, state16, scenes16[TRAIN_STEPS])
+    bf16_launches = dict(fused_render.variant_launches)
+    phase("bf16_eval", t0, **scores16, launches=bf16_launches)
+    check(bf16_launches == {"stack/bf16/full": TRAIN_STEPS + 1}
+          and mlp_psf.launches == 0, f"bf16 AiF path launches {bf16_launches}")
 
     # ---- DFVNet: train steps, then one validation batch ----------------
     t0 = time.perf_counter()
-    del model, state, out, stack
+    del model16, state16
     state_dict, dfv_step = load_flax_dfvnet(DFV_CKPT)
     dfv = DFVNet(clean=False, level=2, use_diff=1).to(device)
     dfv.load_state_dict(state_dict)
@@ -370,7 +686,7 @@ def main():
                   for _ in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dfv_steps = train_steps(dfv_scenes[:TRAIN_STEPS],
+    dfv_steps = train_steps(net, dfv_scenes[:TRAIN_STEPS],
                             lambda stack, focus, depth, aif:
                             dfv_train_step(dfv_state, stack, focus, depth))
     phase("dfv_train", t0, steps=len(dfv_steps), dfvnet_checkpoint_step=dfv_step,
@@ -388,35 +704,58 @@ def main():
     check(dfv_launches == TRAIN_STEPS + 1, f"{dfv_launches} DFV-path launches")
     check(mlp_psf.launches == 0, "the DFV path left the fused route")
 
-    emit({"kernels": [{
-        "name": "fused_psf_render",
-        "route": "cuda",
-        "source": "aadff_tpu_torch/csrc/fused_psf_render.cu",
-        "replaces": "aadff_tpu/ops/pallas_render.py:336",
-        "also_replaces": "aadff_tpu/ops/pallas_render.py:222",
-        "launches": main_launches,
-        "dfv_launches": dfv_launches,
-        "max_abs_err": err_stack,
-        "tol": KERNEL_TOL,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }, {
-        "name": "mlp_psf",
-        "route": "cuda",
-        "source": "aadff_tpu_torch/csrc/mlp_psf.cu",
-        "replaces": "aadff_tpu/ops/pallas_mlp.py:100",
-        "launches": route_launches,
-        "max_abs_err": max(mlp_err.values()),
-        "tol": KERNEL_TOL,
-        "ms": mlp_ms,
-        "plain_ms": mlp_plain_ms,
-        "bound_ms": mlp_bound,
-        "bound_by": mlp_bound_by,
-        "library_ms": mlp_plain_ms,
-    }]})
+    render_src = "aadff_tpu_torch/csrc/fused_psf_render.cu"
+    mlp_src = "aadff_tpu_torch/csrc/mlp_psf.cu"
+    b1 = "aadff_tpu/ops/pallas_render.py:336"
+    b2 = "aadff_tpu/ops/pallas_render.py:222"
+    bf16_tol = {"max_abs": BF16_MAX_ABS, "mean_abs": BF16_MEAN_ABS}
+
+    def entry(name, source, replaces, launches, err, tol, ms, plain, bound,
+              library_ms=None, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err[0], **({"mean_abs_err": err[1]}
+                                          if len(err) > 1 else {}),
+                "tol": tol, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library_ms, **extra}
+
+    kernels = [
+        entry("fused_psf_render", render_src, b1, main_launches, (err_stack,),
+              KERNEL_TOL, kernel_ms, plain_ms, (bound_ms, bound_by),
+              variant="stack/f32/full", dfv_launches=dfv_launches),
+        entry("fused_psf_render_bf16", render_src, b1,
+              bf16_launches["stack/bf16/full"], b1_16["stack_2x8x3x480x640"],
+              bf16_tol, b1_16_ms, b1_16_plain_ms, (b1_16_bound, b1_16_bound_by),
+              variant="stack/bf16/full",
+              l1_px_vs_f32=b1_16_f32["stack_2x8x3x480x640"][1]),
+        entry("fused_psf_render_frame", render_src, b2,
+              frame_counts["frame/f32/full"], (err_ragged,), KERNEL_TOL,
+              frame_ms, frame_plain_ms, (frame_bound_ms, bound_by),
+              variant="frame/f32/full"),
+        entry("fused_psf_render_frame_bf16", render_src, b2,
+              frame_counts["frame/bf16/full"], b1_16["ragged_1x1x3x123x161"],
+              bf16_tol, frame16_ms, frame16_plain_ms, frame16_bound,
+              variant="frame/bf16/full"),
+        entry("mlp_psf", mlp_src, "aadff_tpu/ops/pallas_mlp.py:100",
+              route_launches["f32"], (max(mlp_err.values()),), KERNEL_TOL,
+              mlp_ms, mlp_plain_ms, (mlp_bound, mlp_bound_by),
+              library_ms=mlp_plain_ms, variant="f32"),
+        entry("mlp_psf_bf16", mlp_src, "aadff_tpu/ops/pallas_mlp.py:100",
+              route_launches["bf16"], b3_16["field_614400x4"], bf16_tol,
+              b3_16_ms, b3_16_plain_ms, (b3_16_bound, b3_16_bound_by),
+              library_ms=b3_16_library_ms, variant="bf16",
+              l1_px_vs_f32=b3_16_f32["field_614400x4"][1]),
+    ]
+    for name, rec in split.items():
+        kernels.append(entry(
+            f"fused_psf_render[{name.split('/', 1)[1]}]", render_src,
+            "aadff_tpu/ops/pallas_render.py:222 (modes :93-101)",
+            rec["launches"], (rec["max_abs_err"], rec["mean_abs_err"]),
+            bf16_tol if "/bf16/" in name else KERNEL_TOL, rec["ms"],
+            rec["plain_ms"], (rec["bound_ms"], rec["bound_by"]),
+            variant=name, **({"vs_full_max_abs": rec["vs_full_max_abs"]}
+                             if "vs_full_max_abs" in rec else {})))
+    emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
