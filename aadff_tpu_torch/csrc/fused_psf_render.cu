@@ -13,9 +13,11 @@
 //                   convolution); the output is the first C taps;
 //   mode 'convonly' no MLP: the PSF is 0.01 * z broadcast to every tap, with
 //                   no sigmoid and no normalisation; convolution only;
-//   pipe            the MLP as two independent half-tile chains (two groups
-//                   of half the block's threads, each streaming the weights
-//                   for its half of the pixels); the same result as 'full'.
+//   pipe            the MLP as two independent half-tile chains; the same
+//                   result as 'full'.  f32: two groups of half the block's
+//                   threads, each streaming the weights for its half of the
+//                   pixels.  bf16: the kernel's two consumer warpgroups are
+//                   such chains already, so pipe launches 'full'.
 //
 // What bounds it on an H100.  Per pixel and frame the MLP 4->64->256->8x256
 // ->121 costs 571,904 multiply-adds and the 11x11 convolution 363 more, so
@@ -28,20 +30,29 @@
 //
 // What this design does about it.  Nothing but the field inputs, the image
 // halo and the output pixels touches device memory: the [H,W,121] PSF field
-// and every hidden activation live in shared memory.
-//  * One block owns a tile of TH x TW pixels of one image (4 x 16 with 256
-//    threads in f32, 8 x 16 with 512 threads in bf16) and loops over the S
-//    frames, so the edge-replicated (TH+10) x (TW+10) x C image halo is
-//    loaded once for all frames (the TPU kernel's reuse).  Only foc_z differs
-//    between frames; x, y and z are computed once per pixel.
-//  * The MLP stage is mlp_tile.cuh, shared with mlp_psf.cu: f32 FMA on the
-//    CUDA cores, or bf16 mma.sync on the tensor cores with f32 accumulation.
-//    Either way every block streams all the weights from L2 through shared
-//    memory once per frame: 1.14 MB in bf16.  With 64 pixels a block that
-//    is 9,600 blocks x 8 frames, about 88 GB per main-path stack, more than
-//    the 5.7 ms bf16 bound can carry; the bf16 tile is therefore 128 pixels
-//    (44 GB).  Wider tiles, wgmma and TMA are the next steps.
-// The ragged edge is masked: any H x W is accepted.
+// and every hidden activation stay on the SM.  One block owns a tile of
+// TH x TW pixels of one image and loops over the S frames, so the
+// edge-replicated (TH+10) x (TW+10) x C image halo is loaded once for all
+// frames (the TPU kernel's reuse); only foc_z differs between frames, and
+// x, y and z are computed once per pixel.  The MLP stage is mlp_tile.cuh,
+// shared with mlp_psf.cu:
+//  * f32: 4 x 16 pixels, 256 threads, FMA on the CUDA cores (F32Stage).
+//  * bf16: 8 x 16 pixels, 384 threads in three warpgroups (wg::): two
+//    consumers take turns running wgmma on 4 x 16 pixels each with
+//    activations in registers, one producer streams the weights through a
+//    ring of 16 KB chunks with bulk copies and mbarriers.  With clusters of
+//    2 neighbouring tiles each chunk leaves L2 once per 256 pixels (22 GB a
+//    main-path stack instead of 44), but each SM still takes in 1.14 MB of
+//    weights per tile and frame, about as fast as its tensor cores use
+//    them, so the multicast does not pay and is off by default.  That
+//    stream, and the epilogues the turns do not hide, hold the kernel at
+//    about half of its bound.  Each consumer convolves
+//    its own 64 pixels on its 128 threads: the taps' rows are split
+//    between its two halves of 64 threads, whose partial sums meet in
+//    shared memory.  That epilogue overlaps the other consumer's wgmma and
+//    the ring's copies of the next frame's first chunks.
+// The ragged edge is masked: any H x W is accepted, and a grid padded to a
+// whole number of clusters has blocks that compute and store nothing.
 
 #include "mlp_tile.cuh"
 
@@ -195,6 +206,142 @@ fused_psf_render_kernel(const float* __restrict__ img,
   }
 }
 
+// The bf16 kernel (mlp_tile.cuh, wg::): a tile of 8 x 16 pixels, consumer
+// c on rows 4c .. 4c+3.  MODE kFull or kMlpOnly; CL blocks a cluster.
+template <int MODE, int CL>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+fused_psf_render_wg(const float* __restrict__ img,
+                    const float* __restrict__ depth,
+                    const float* __restrict__ focus,
+                    const void* __restrict__ wpack,
+                    const __grid_constant__ MlpLayout L,
+                    float* __restrict__ out, int S, int C, int H, int W,
+                    int ks, float d_min, float d_max, int nchunks,
+                    int nbias) {
+  constexpr int TH = wg::kPixels / TW;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* sm = wg::aligned_smem(smem_raw);
+  const int taps = ks * ks;
+  const int hh = TH + ks - 1;
+  const int hw = TW + ks - 1;
+  const wg::Smem m = wg::smem_plan(nbias, taps, MODE == kFull ? 4 * C * 64 : 0,
+                                   MODE == kFull ? C * hh * hw : 0);
+  const wg::Ring ring = wg::ring_init<CL>(sm, m);
+  const int t = threadIdx.x;
+
+  if (t >= 256) {  // the producer warpgroup
+    wg::setmaxnreg_dec<wg::kProducerRegs>();
+    if (t == 256) {
+      const bf16* w = static_cast<const bf16*>(wpack) + L.w_off[0];
+      wg::produce<CL>(ring, reinterpret_cast<const char*>(w), nchunks, S);
+    }
+    if constexpr (CL > 1) wg::cluster_sync();
+  } else {  // the two consumer warpgroups
+    wg::setmaxnreg_inc<wg::kConsumerRegs>();
+    const int n = blockIdx.z;
+    const int y0 = blockIdx.y * TH;
+    const int x0 = blockIdx.x * TW;
+    const int pad = (ks - 1) / 2;
+    const size_t plane = (size_t)H * W;
+    const float range = __fsub_rn(d_max, d_min);
+    float* bias = reinterpret_cast<float*>(sm + m.bias);
+    float* halo = reinterpret_cast<float*>(sm + m.halo);
+    const float* gbias = reinterpret_cast<const float*>(
+        static_cast<const bf16*>(wpack) + L.b_off[0]);
+    for (int i = t; i < nbias; i += 256) bias[i] = gbias[i];
+    if constexpr (MODE == kFull) {
+      for (int i = t; i < C * hh * hw; i += 256) {
+        const int c = i / (hh * hw);
+        const int r = i - c * hh * hw;
+        const int gy = min(max(y0 - pad + r / hw, 0), H - 1);
+        const int gx = min(max(x0 - pad + r % hw, 0), W - 1);
+        halo[i] = img[((size_t)n * C + c) * plane + (size_t)gy * W + gx];
+      }
+    }
+    group_sync(wg::kBarConsumers, 256);
+
+    const int c = t >> 7;   // consumer
+    const int tw = t & 127;
+    const int bar = 2 + c;
+    // x, y, z of this thread's two MLP pixels (tile pixel 64c + row and
+    // + 8; pixels past the ragged edge are clamped and never stored)
+    float fld[2][4];
+    const int row = 16 * (tw >> 5) + ((tw & 31) >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = 64 * c + row + 8 * h;
+      const int gy = min(y0 + p / TW, H - 1);
+      const int gx = min(x0 + p % TW, W - 1);
+      fld[h][0] = linspace_at(-1.f, 1.f, W, gx);
+      fld[h][1] = linspace_at(1.f, -1.f, H, gy);
+      const float d = depth[(size_t)n * plane + (size_t)gy * W + gx];
+      fld[h][2] = clamp01(__fdiv_rn(__fsub_rn(d, d_min), range));
+    }
+    float* psf =
+        reinterpret_cast<float*>(sm + m.psf) + c * wg::psf_floats(taps);
+    float* part = reinterpret_cast<float*>(sm + m.part) + c * 2 * C * 64;
+    // this thread's pixel in the epilogue, and its half of the taps' rows
+    const int p = tw & 63;
+    const int half = tw >> 6;
+    const int ty = (64 * c + p) / TW;
+    const int tx = (64 * c + p) % TW;
+    const int a_lo = half ? (ks + 1) / 2 : 0;
+    const int a_hi = half ? ks : (ks + 1) / 2;
+
+    wg::Pos pos;
+    wg::Turn turn(c);
+    for (int s = 0; s < S; ++s) {
+      fld[0][3] = fld[1][3] =
+          clamp01(__fdiv_rn(__fsub_rn(focus[n * S + s], d_min), range));
+      wg::run_mlp<CL>(L, ring, pos, turn, bias, fld[0], fld[1], psf, taps,
+                      tw);
+      group_sync(bar, 128);
+      float* dst = out + ((size_t)n * S + s) * C * plane;
+      if constexpr (MODE == kMlpOnly) {
+        // out[c, y, x] = psf[pixel, c]
+        for (int i = tw; i < C * 64; i += 128) {
+          const int cc = i >> 6;
+          const int pp = i & 63;
+          const int py = y0 + (64 * c + pp) / TW;
+          const int px = x0 + (64 * c + pp) % TW;
+          if (py < H && px < W) {
+            dst[cc * plane + (size_t)py * W + px] = psf[pp * taps + cc];
+          }
+        }
+      } else {
+        // out[c, y, x] = sum_ab halo[c, y+a, x+b] * psf[pixel, a*ks+b]:
+        // each half of the threads sums its rows a, then the two partial
+        // sums of a pixel are added
+        const float* pp = psf + p * taps;
+        for (int cc = 0; cc < C; ++cc) {
+          const float* hb = halo + cc * hh * hw + ty * hw + tx;
+          float acc = 0.f;
+          for (int a = a_lo; a < a_hi; ++a) {
+            for (int b = 0; b < ks; ++b) {
+              acc = fmaf(hb[a * hw + b], pp[a * ks + b], acc);
+            }
+          }
+          part[(half * C + cc) * 64 + p] = acc;
+        }
+        group_sync(bar, 128);
+        for (int i = tw; i < C * 64; i += 128) {
+          const int cc = i >> 6;
+          const int pp = i & 63;
+          const int py = y0 + (64 * c + pp) / TW;
+          const int px = x0 + (64 * c + pp) % TW;
+          if (py < H && px < W) {
+            dst[cc * plane + (size_t)py * W + px] =
+                part[cc * 64 + pp] + part[(C + cc) * 64 + pp];
+          }
+        }
+      }
+      group_sync(bar, 128);
+    }
+    turn.finish();
+    if constexpr (CL > 1) wg::cluster_sync();
+  }
+}
+
 template <class Stage, int NG, int MODE>
 int launch(const float* img, const float* depth, const float* focus,
            const void* wpack, const MlpLayout& L, float* out, int N, int S,
@@ -213,7 +360,7 @@ int launch(const float* img, const float* depth, const float* focus,
   return (int)cudaGetLastError();
 }
 
-// One group on the whole tile (Full), or two on its halves (Pipe, the
+// f32: one group on the whole tile (Full), or two on its halves (Pipe, the
 // `pipe` diagnostic).
 template <class Full, class Pipe>
 int launch_mode(int mode, int pipe, const float* img, const float* depth,
@@ -232,6 +379,43 @@ int launch_mode(int mode, int pipe, const float* img, const float* depth,
 #undef AADFF_LAUNCH
 }
 
+// The bf16 kernel on clusters of CL blocks: the grid's x is padded to a
+// multiple of CL.
+template <int MODE, int CL>
+int launch_wg(const float* img, const float* depth, const float* focus,
+              const void* wpack, const MlpLayout& L, float* out, int N, int S,
+              int C, int H, int W, int ks, float d_min, float d_max,
+              int nchunks, int nbias, cudaStream_t stream) {
+  constexpr int TH = wg::kPixels / TW;
+  const int halo = C * (TH + ks - 1) * (TW + ks - 1);
+  const wg::Smem m = wg::smem_plan(nbias, ks * ks,
+                                   MODE == kFull ? 4 * C * 64 : 0,
+                                   MODE == kFull ? halo : 0);
+  const int tiles_x = (W + TW - 1) / TW;
+  const dim3 grid((tiles_x + CL - 1) / CL * CL, (H + TH - 1) / TH, N);
+  return wg::launch(fused_psf_render_wg<MODE, CL>, grid, (size_t)m.total, CL,
+                    stream, img, depth, focus, wpack, L, out, S, C, H, W, ks,
+                    d_min, d_max, nchunks, nbias);
+}
+
+template <int MODE>
+int launch_wg_cluster(int cluster, const float* img, const float* depth,
+                      const float* focus, const void* wpack,
+                      const MlpLayout& L, float* out, int N, int S, int C,
+                      int H, int W, int ks, float d_min, float d_max,
+                      int nchunks, int nbias, cudaStream_t stream) {
+#define AADFF_LAUNCH_WG(CL)                                                  \
+  launch_wg<MODE, CL>(img, depth, focus, wpack, L, out, N, S, C, H, W, ks, \
+                      d_min, d_max, nchunks, nbias, stream)
+  switch (cluster) {
+    case 1: return AADFF_LAUNCH_WG(1);
+    case 2: return AADFF_LAUNCH_WG(2);
+    case 4: return AADFF_LAUNCH_WG(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef AADFF_LAUNCH_WG
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,28 +425,31 @@ extern "C" {
 // bf16 (`use_bf16` 0 or 1); layout: host array of 5 ints per layer (k, f,
 // fpad, w_off, b_off).  mode: 0 full, 1 mlponly, 2 convonly; pipe 0 or 1;
 // a mode other than full, or pipe, takes S = 1 only ('convonly' has no MLP,
-// so neither bf16 nor pipe changes it).  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
+// so neither bf16 nor pipe changes it; in bf16, pipe is 'full': its two
+// consumer warpgroups are the two half-tile chains).  cluster: blocks a
+// cluster of the bf16 kernel, 1 (no multicast), 2 or 4.  Launches on
+// `stream` and returns its error (0 on success); it does not synchronise.
 int aadff_fused_psf_render(const float* img, const float* depth,
                            const float* focus, const void* wpack,
                            const int* layout, int n_layers, float* out, int N,
                            int S, int C, int H, int W, int ks, float d_min,
                            float d_max, int use_bf16, int mode, int pipe,
-                           void* stream) {
+                           int cluster, void* stream) {
   if (N < 1 || S < 1 || C < 1 || H < 1 || W < 1 || ks < 1 || (ks & 1) == 0 ||
       mode < kFull || mode > kConvOnly || (use_bf16 != 0 && use_bf16 != 1) ||
       (pipe != 0 && pipe != 1) || ((mode != kFull || pipe) && S != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   MlpLayout L;
-  const int rc = parse_layout(layout, n_layers, use_bf16 ? 8 : 4, &L);
+  int nchunks = 0, nbias = 0;
+  const int rc = use_bf16
+                     ? wg::parse_wg_layout(layout, n_layers, &L, &nchunks,
+                                           &nbias)
+                     : parse_layout(layout, n_layers, 4, &L);
   if (rc != 0) return rc;
   const int taps = ks * ks;
   if (L.f[n_layers - 1] != taps || C > taps) {
     return (int)cudaErrorInvalidValue;
-  }
-  if (use_bf16 && L.fpad[n_layers - 1] != 128) {
-    return (int)cudaErrorInvalidValue;  // the f32 rows of the last layer
   }
 
   const cudaStream_t st = (cudaStream_t)stream;
@@ -271,9 +458,13 @@ int aadff_fused_psf_render(const float* img, const float* depth,
                                          S, C, H, W, ks, d_min, d_max, st);
   }
   if (use_bf16) {
-    return launch_mode<Bf16Full, Bf16Pipe>(mode, pipe, img, depth, focus,
-                                           wpack, L, out, N, S, C, H, W, ks,
-                                           d_min, d_max, st);
+    return mode == kFull
+               ? launch_wg_cluster<kFull>(cluster, img, depth, focus, wpack, L,
+                                          out, N, S, C, H, W, ks, d_min,
+                                          d_max, nchunks, nbias, st)
+               : launch_wg_cluster<kMlpOnly>(cluster, img, depth, focus, wpack,
+                                             L, out, N, S, C, H, W, ks, d_min,
+                                             d_max, nchunks, nbias, st);
   }
   return launch_mode<F32Full, F32Pipe>(mode, pipe, img, depth, focus, wpack,
                                        L, out, N, S, C, H, W, ks, d_min, d_max,

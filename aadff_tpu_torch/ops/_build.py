@@ -96,9 +96,10 @@ def kernels() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.aadff_fused_psf_render.argtypes = [
             p, p, p, p, ctypes.POINTER(i), i, p, i, i, i, i, i, i, f, f, i, i,
-            i, p]
+            i, i, p]
         lib.aadff_fused_psf_render.restype = i
-        lib.aadff_mlp_psf.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, p]
+        lib.aadff_mlp_psf.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, i,
+                                      p]
         lib.aadff_mlp_psf.restype = i
         lib.aadff_error_string.argtypes = [i]
         lib.aadff_error_string.restype = ctypes.c_char_p

@@ -38,6 +38,14 @@ from .render import local_psf_render
 launches = 0
 variant_launches: collections.Counter = collections.Counter()
 
+# Blocks a cluster of the bf16 kernels (both wrappers), read at every
+# launch: at 2 or 4 each weight chunk leaves L2 once per cluster and is
+# multicast to its blocks.  1 (no multicast) is the default because it was
+# the fastest on the H100 (PERF.md, section 6); 2 and 4 are kept to measure
+# that again.
+bf16_cluster = 1
+BF16_CLUSTERS = (1, 2, 4)
+
 COMPUTE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MODES = ("full", "mlponly", "convonly")
 
@@ -147,6 +155,22 @@ def fused_psf_render_reference(mlp: MLP, img: torch.Tensor,
     return out
 
 
+# The bf16 stage's weight chunks (csrc/mlp_tile.cuh, wg::): 128 rows of 64
+# k, K-major, rows of 128 bytes whose 16-byte groups are XOR-swizzled by the
+# row index mod 8 (the 128-byte swizzle of the wgmma descriptor).
+CHUNK_ROWS, CHUNK_K = 128, 64
+
+
+def _swizzle_gather() -> torch.Tensor:
+    """Position d of a swizzled chunk image holds element [gather[d]] of
+    the plain [128, 64] chunk, flattened: the 16-byte group g of row r is
+    stored at group g ^ (r % 8) of that row."""
+    r = torch.arange(CHUNK_ROWS)[:, None, None]
+    g = torch.arange(CHUNK_K // 8)[None, :, None]
+    e = torch.arange(8)[None, None, :]
+    return (r * CHUNK_K + ((g ^ (r % 8)) * 8) + e).reshape(-1)
+
+
 def pack_mlp_weights(mlp: MLP, compute_dtype=torch.float32
                      ) -> tuple[torch.Tensor, list[int]]:
     """The kernels' weight layout, in one buffer on the weights' device, and
@@ -154,11 +178,16 @@ def pack_mlp_weights(mlp: MLP, compute_dtype=torch.float32
     type, all multiples of 16 bytes); outputs are zero-padded to fpad = 128
     or 256.
       f32:  per layer W^T [k, fpad] then the bias [fpad], an f32 buffer;
-      bf16: per layer W [fpad, kpad] rounded to bf16 (k contiguous, zero-
-            padded to kpad = k rounded up to 16, the MMA's depth), then the
-            f32 bias [fpad] stored bit for bit in 2 * fpad bf16 slots."""
+      bf16: the weights rounded to bf16 as chunks of 128 output rows x 64 k
+            (16 KB), every chunk the swizzled image the wgmma stage reads
+            (`_swizzle_gather`): per layer the output halves of 128 rows
+            in turn, each as ceil(k / 64) chunks along k; k is zero-padded
+            (layer 0's K = 4 to its 64-wide row, of which the kernel reads
+            the MMA depth of 16).  The chunks of all layers come first, in
+            that order, each layer's at w_off; then each layer's f32 bias
+            [fpad] stored bit for bit in 2 * fpad bf16 slots, at b_off."""
     bf16 = check_compute_dtype(compute_dtype) == "bf16"
-    chunks, layout, off = [], [], 0
+    chunks, biases, layout, off = [], [], [], 0
     for lin in mlp.linears():
         f, k = lin.weight.shape
         fpad = 128 if f <= 128 else 256
@@ -167,16 +196,27 @@ def pack_mlp_weights(mlp: MLP, compute_dtype=torch.float32
         b = lin.bias.detach().float().new_zeros(fpad)
         b[:f] = lin.bias.detach()
         if bf16:
-            kpad = -(-k // 16) * 16
-            w = lin.weight.new_zeros(fpad, kpad, dtype=torch.bfloat16)
+            nk = -(-k // CHUNK_K)
+            w = lin.weight.new_zeros(fpad, nk * CHUNK_K, dtype=torch.bfloat16)
             w[:f, :k] = lin.weight.detach()
-            b = b.view(torch.bfloat16)
+            w = (w.reshape(fpad // CHUNK_ROWS, CHUNK_ROWS, nk, CHUNK_K)
+                 .permute(0, 2, 1, 3).reshape(-1, CHUNK_ROWS * CHUNK_K))
+            w = w[:, _swizzle_gather().to(w.device)]
+            layout += [k, f, fpad, off, None]
+            chunks.append(w.reshape(-1))
+            biases.append(b.view(torch.bfloat16))
+            off += w.numel()
         else:
             w = lin.weight.new_zeros(k, fpad)
             w[:, :f] = lin.weight.detach().t()
-        layout += [k, f, fpad, off, off + w.numel()]
-        chunks += [w.reshape(-1), b]
-        off += w.numel() + b.numel()
+            layout += [k, f, fpad, off, off + w.numel()]
+            chunks += [w.reshape(-1), b]
+            off += w.numel() + b.numel()
+    if bf16:
+        for i, b in enumerate(biases):
+            layout[5 * i + 4] = off
+            off += b.numel()
+        chunks += biases
     return torch.cat(chunks).contiguous(), layout
 
 
@@ -195,6 +235,14 @@ def packed_weights(mlp: MLP, compute_dtype) -> tuple[torch.Tensor, list[int]]:
     if compute_dtype not in packs or packs[compute_dtype][0] != stamp:
         packs[compute_dtype] = (stamp, *pack_mlp_weights(mlp, compute_dtype))
     return packs[compute_dtype][1:]
+
+
+def cluster() -> int:
+    """`bf16_cluster`, checked."""
+    if bf16_cluster not in BF16_CLUSTERS:
+        raise ValueError(f"bf16_cluster must be one of {BF16_CLUSTERS}, got "
+                         f"{bf16_cluster}")
+    return bf16_cluster
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,
@@ -265,7 +313,7 @@ def fused_psf_render(mlp: MLP, img: torch.Tensor, depth_mm: torch.Tensor,
             img.data_ptr(), depth_mm.data_ptr(), focus_mm.data_ptr(),
             wpack.data_ptr(), c_layout, n_layers, out.data_ptr(),
             N, S, C, H, W, ks, float(d_min), float(d_max), int(dt == "bf16"),
-            MODES.index(mode), int(bool(pipe)), stream)
+            MODES.index(mode), int(bool(pipe)), cluster(), stream)
     if rc != 0:
         raise RuntimeError("fused_psf_render kernel launch failed: "
                            + lib.aadff_error_string(rc).decode())

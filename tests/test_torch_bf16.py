@@ -126,23 +126,106 @@ def test_mlp_compute_dtype_is_checked(weights):
         mlp_psf.mlp_psf(mlp, torch.zeros(4, 4), torch.float16)
 
 
-def test_pack_bf16_layout(weights):
-    """The bf16 pack holds W [fpad, kpad] rounded to bf16 (k zero-padded to
-    16) and the f32 bias bit for bit, at 16-byte-aligned offsets."""
-    _, mlp = weights["checkpoint"]
+CHUNK_ELEMS = 8192  # one weight chunk of the bf16 stage: 128 rows x 64 k
+
+
+def _unswizzle(img: np.ndarray) -> np.ndarray:
+    """Decode one 16 KB chunk image (8192 uint16) into its [128, 64] rows.
+
+    Written from the hardware's rule, not from the packer: element (r, k)
+    of a K-major chunk with 128-byte rows sits at byte r * 128 + 2 * k, and
+    the 128-byte swizzle XORs address bits 4-6 with bits 7-9 (the row mod
+    8)."""
+    r, k = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
+    plain = r * 128 + 2 * k
+    swizzled = plain ^ (((plain >> 7) & 7) << 4)
+    return img[swizzled // 2]
+
+
+def _decode_bf16_pack(wpack: torch.Tensor, layout: list[int]):
+    """[(W bits [fpad, ceil(k/64)*64] uint16, bias f32, row)] per layer from
+    a bf16 pack, and check its offsets on the way: every chunk 16 KB and
+    16 KB-aligned in the buffer (the bulk copy needs 16 bytes, the swizzle
+    atom 1024), all chunks in reading order, then all biases."""
+    bits = wpack.view(torch.int16).numpy().view(np.uint16)
+    rows = [layout[i:i + 5] for i in range(0, len(layout), 5)]
+    out, next_w, next_b = [], 0, rows[0][4]
+    for k, f, fpad, w_off, b_off in rows:
+        nh, nk = fpad // 128, -(-k // 64)
+        assert w_off == next_w and w_off % CHUNK_ELEMS == 0
+        assert b_off == next_b and (2 * b_off) % 16 == 0
+        w = np.zeros((fpad, 64 * nk), np.uint16)
+        for h in range(nh):
+            for kc in range(nk):
+                start = w_off + (h * nk + kc) * CHUNK_ELEMS
+                w[128 * h:128 * (h + 1), 64 * kc:64 * (kc + 1)] = _unswizzle(
+                    bits[start:start + CHUNK_ELEMS])
+        bias = bits[b_off:b_off + 2 * fpad].view(np.float32)
+        out.append((w, bias, (k, f, fpad)))
+        next_w += nh * nk * CHUNK_ELEMS
+        next_b += 2 * fpad
+    assert rows[0][4] == next_w and next_b == wpack.numel()
+    return out
+
+
+def _check_bf16_pack(mlp):
     wpack, layout = fused_render.pack_mlp_weights(mlp, BF16)
     assert wpack.dtype == BF16
-    rows = [layout[i:i + 5] for i in range(0, len(layout), 5)]
-    for lin, (k, f, fpad, w_off, b_off) in zip(mlp.linears(), rows):
-        kpad = -(-k // 16) * 16
-        assert w_off % 8 == 0 and b_off % 8 == 0 and b_off == w_off + fpad * kpad
-        w = wpack[w_off:b_off].reshape(fpad, kpad)
-        torch.testing.assert_close(w[:f, :k], lin.weight.to(BF16), rtol=0,
-                                   atol=0)
+    decoded = _decode_bf16_pack(wpack, layout)
+    assert len(decoded) == len(mlp.linears())
+    for lin, (w, bias, (k, f, fpad)) in zip(mlp.linears(), decoded):
+        assert fpad == (128 if f <= 128 else 256)
+        want = lin.weight.detach().to(BF16).view(torch.int16).numpy()
+        np.testing.assert_array_equal(w[:f, :k], want.view(np.uint16))
         assert not w[f:].any() and not w[:, k:].any()
-        b = wpack[b_off:b_off + 2 * fpad].view(torch.float32)
-        torch.testing.assert_close(b[:f], lin.bias, rtol=0, atol=0)
-        assert not b[f:].any()
+        np.testing.assert_array_equal(
+            bias[:f].view(np.uint32),
+            lin.bias.detach().numpy().astype(np.float32).view(np.uint32))
+        assert not bias[f:].any()
+    return decoded
+
+
+def test_pack_bf16_layout(weights):
+    """The bf16 pack of the checkpoint, decoded by `_unswizzle`: every
+    layer's W [f, k] in bf16 bit for bit, layer 0's K = 4 zero-padded to 16
+    (and to its 64-wide chunk row) with its 64 outputs in a 128-row chunk,
+    the last layer's 121 outputs zero-padded to 128, the biases f32 bit for
+    bit, and 71 chunks of 16 KB at aligned offsets in reading order."""
+    _, mlp = weights["checkpoint"]
+    decoded = _check_bf16_pack(mlp)
+    first, last = decoded[0], decoded[-1]
+    assert first[2] == (4, 64, 128) and last[2] == (256, 121, 128)
+    assert not first[0][:, 4:16].any() and not first[0][64:].any()
+    assert not last[0][121:].any()
+    nchunks = sum((fpad // 128) * -(-k // 64) for _, _, (k, _, fpad) in decoded)
+    assert nchunks == 71
+
+
+@pytest.mark.parametrize("seed, hidden_layers, out_features",
+                         [(0, 8, 121), (1, 0, 121), (2, 3, 49), (3, 1, 128)])
+def test_pack_bf16_decodes_random_mlps(seed, hidden_layers, out_features):
+    """Random MLPs of other depths and tap counts (7x7 = 49, 128) decode to
+    their weights and biases bit for bit, with the same padding rules."""
+    torch.manual_seed(seed)
+    mlp = MLP(out_features=out_features, hidden_layers=hidden_layers)
+    decoded = _check_bf16_pack(mlp.requires_grad_(False))
+    assert len(decoded) == hidden_layers + 3
+
+
+def test_bf16_cluster_knob():
+    """The bf16 kernels' cluster size is 1, 2 or 4; anything else raises
+    before a launch."""
+    assert fused_render.bf16_cluster in fused_render.BF16_CLUSTERS
+    saved = fused_render.bf16_cluster
+    try:
+        for size in fused_render.BF16_CLUSTERS:
+            fused_render.bf16_cluster = size
+            assert fused_render.cluster() == size
+        fused_render.bf16_cluster = 3
+        with pytest.raises(ValueError, match="bf16_cluster"):
+            fused_render.cluster()
+    finally:
+        fused_render.bf16_cluster = saved
 
 
 # ---- the fused render (B1/B2) ---------------------------------------------
