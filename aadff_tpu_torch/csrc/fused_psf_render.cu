@@ -40,19 +40,18 @@
 //  * bf16: 8 x 16 pixels, 384 threads in three warpgroups (wg::): two
 //    consumers take turns running wgmma on 4 x 16 pixels each with
 //    activations in registers, one producer streams the weights through a
-//    ring of 16 KB chunks with bulk copies and mbarriers.  With clusters of
-//    2 neighbouring tiles each chunk leaves L2 once per 256 pixels (22 GB a
-//    main-path stack instead of 44), but each SM still takes in 1.14 MB of
-//    weights per tile and frame, about as fast as its tensor cores use
-//    them, so the multicast does not pay and is off by default.  That
-//    stream, and the epilogues the turns do not hide, hold the kernel at
-//    about half of its bound.  Each consumer convolves
+//    ring of 16 KB chunks with bulk copies and mbarriers.  Each SM takes in
+//    1.14 MB of weights per tile and frame (44 GB a main-path stack).
+//    Multicasting each chunk to a cluster of 2 or 4 neighbouring tiles
+//    halves or quarters what leaves L2, but not what each SM takes in, and
+//    measured slower (PERF.md, section 6).  Our hypothesis, not measured:
+//    that per-SM intake, and the epilogues the turns do not hide, hold the
+//    kernel at about half of its bound.  Each consumer convolves
 //    its own 64 pixels on its 128 threads: the taps' rows are split
 //    between its two halves of 64 threads, whose partial sums meet in
 //    shared memory.  That epilogue overlaps the other consumer's wgmma and
 //    the ring's copies of the next frame's first chunks.
-// The ragged edge is masked: any H x W is accepted, and a grid padded to a
-// whole number of clusters has blocks that compute and store nothing.
+// The ragged edge is masked: any H x W is accepted.
 
 #include "mlp_tile.cuh"
 
@@ -207,8 +206,8 @@ fused_psf_render_kernel(const float* __restrict__ img,
 }
 
 // The bf16 kernel (mlp_tile.cuh, wg::): a tile of 8 x 16 pixels, consumer
-// c on rows 4c .. 4c+3.  MODE kFull or kMlpOnly; CL blocks a cluster.
-template <int MODE, int CL>
+// c on rows 4c .. 4c+3.  MODE kFull or kMlpOnly.
+template <int MODE>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 fused_psf_render_wg(const float* __restrict__ img,
                     const float* __restrict__ depth,
@@ -226,16 +225,15 @@ fused_psf_render_wg(const float* __restrict__ img,
   const int hw = TW + ks - 1;
   const wg::Smem m = wg::smem_plan(nbias, taps, MODE == kFull ? 4 * C * 64 : 0,
                                    MODE == kFull ? C * hh * hw : 0);
-  const wg::Ring ring = wg::ring_init<CL>(sm, m);
+  const wg::Ring ring = wg::ring_init(sm, m);
   const int t = threadIdx.x;
 
   if (t >= 256) {  // the producer warpgroup
     wg::setmaxnreg_dec<wg::kProducerRegs>();
     if (t == 256) {
       const bf16* w = static_cast<const bf16*>(wpack) + L.w_off[0];
-      wg::produce<CL>(ring, reinterpret_cast<const char*>(w), nchunks, S);
+      wg::produce(ring, reinterpret_cast<const char*>(w), nchunks, S);
     }
-    if constexpr (CL > 1) wg::cluster_sync();
   } else {  // the two consumer warpgroups
     wg::setmaxnreg_inc<wg::kConsumerRegs>();
     const int n = blockIdx.z;
@@ -293,8 +291,7 @@ fused_psf_render_wg(const float* __restrict__ img,
     for (int s = 0; s < S; ++s) {
       fld[0][3] = fld[1][3] =
           clamp01(__fdiv_rn(__fsub_rn(focus[n * S + s], d_min), range));
-      wg::run_mlp<CL>(L, ring, pos, turn, bias, fld[0], fld[1], psf, taps,
-                      tw);
+      wg::run_mlp(L, ring, pos, turn, bias, fld[0], fld[1], psf, taps, tw);
       group_sync(bar, 128);
       float* dst = out + ((size_t)n * S + s) * C * plane;
       if constexpr (MODE == kMlpOnly) {
@@ -338,7 +335,6 @@ fused_psf_render_wg(const float* __restrict__ img,
       group_sync(bar, 128);
     }
     turn.finish();
-    if constexpr (CL > 1) wg::cluster_sync();
   }
 }
 
@@ -379,9 +375,8 @@ int launch_mode(int mode, int pipe, const float* img, const float* depth,
 #undef AADFF_LAUNCH
 }
 
-// The bf16 kernel on clusters of CL blocks: the grid's x is padded to a
-// multiple of CL.
-template <int MODE, int CL>
+// The bf16 kernel.
+template <int MODE>
 int launch_wg(const float* img, const float* depth, const float* focus,
               const void* wpack, const MlpLayout& L, float* out, int N, int S,
               int C, int H, int W, int ks, float d_min, float d_max,
@@ -391,29 +386,10 @@ int launch_wg(const float* img, const float* depth, const float* focus,
   const wg::Smem m = wg::smem_plan(nbias, ks * ks,
                                    MODE == kFull ? 4 * C * 64 : 0,
                                    MODE == kFull ? halo : 0);
-  const int tiles_x = (W + TW - 1) / TW;
-  const dim3 grid((tiles_x + CL - 1) / CL * CL, (H + TH - 1) / TH, N);
-  return wg::launch(fused_psf_render_wg<MODE, CL>, grid, (size_t)m.total, CL,
-                    stream, img, depth, focus, wpack, L, out, S, C, H, W, ks,
-                    d_min, d_max, nchunks, nbias);
-}
-
-template <int MODE>
-int launch_wg_cluster(int cluster, const float* img, const float* depth,
-                      const float* focus, const void* wpack,
-                      const MlpLayout& L, float* out, int N, int S, int C,
-                      int H, int W, int ks, float d_min, float d_max,
-                      int nchunks, int nbias, cudaStream_t stream) {
-#define AADFF_LAUNCH_WG(CL)                                                  \
-  launch_wg<MODE, CL>(img, depth, focus, wpack, L, out, N, S, C, H, W, ks, \
-                      d_min, d_max, nchunks, nbias, stream)
-  switch (cluster) {
-    case 1: return AADFF_LAUNCH_WG(1);
-    case 2: return AADFF_LAUNCH_WG(2);
-    case 4: return AADFF_LAUNCH_WG(4);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef AADFF_LAUNCH_WG
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
+  return wg::launch(fused_psf_render_wg<MODE>, grid, (size_t)m.total, stream,
+                    img, depth, focus, wpack, L, out, S, C, H, W, ks, d_min,
+                    d_max, nchunks, nbias);
 }
 
 }  // namespace
@@ -426,15 +402,14 @@ extern "C" {
 // fpad, w_off, b_off).  mode: 0 full, 1 mlponly, 2 convonly; pipe 0 or 1;
 // a mode other than full, or pipe, takes S = 1 only ('convonly' has no MLP,
 // so neither bf16 nor pipe changes it; in bf16, pipe is 'full': its two
-// consumer warpgroups are the two half-tile chains).  cluster: blocks a
-// cluster of the bf16 kernel, 1 (no multicast), 2 or 4.  Launches on
-// `stream` and returns its error (0 on success); it does not synchronise.
+// consumer warpgroups are the two half-tile chains).  Launches on `stream`
+// and returns its error (0 on success); it does not synchronise.
 int aadff_fused_psf_render(const float* img, const float* depth,
                            const float* focus, const void* wpack,
                            const int* layout, int n_layers, float* out, int N,
                            int S, int C, int H, int W, int ks, float d_min,
                            float d_max, int use_bf16, int mode, int pipe,
-                           int cluster, void* stream) {
+                           void* stream) {
   if (N < 1 || S < 1 || C < 1 || H < 1 || W < 1 || ks < 1 || (ks & 1) == 0 ||
       mode < kFull || mode > kConvOnly || (use_bf16 != 0 && use_bf16 != 1) ||
       (pipe != 0 && pipe != 1) || ((mode != kFull || pipe) && S != 1)) {
@@ -459,12 +434,11 @@ int aadff_fused_psf_render(const float* img, const float* depth,
   }
   if (use_bf16) {
     return mode == kFull
-               ? launch_wg_cluster<kFull>(cluster, img, depth, focus, wpack, L,
-                                          out, N, S, C, H, W, ks, d_min,
-                                          d_max, nchunks, nbias, st)
-               : launch_wg_cluster<kMlpOnly>(cluster, img, depth, focus, wpack,
-                                             L, out, N, S, C, H, W, ks, d_min,
-                                             d_max, nchunks, nbias, st);
+               ? launch_wg<kFull>(img, depth, focus, wpack, L, out, N, S, C,
+                                  H, W, ks, d_min, d_max, nchunks, nbias, st)
+               : launch_wg<kMlpOnly>(img, depth, focus, wpack, L, out, N, S,
+                                     C, H, W, ks, d_min, d_max, nchunks,
+                                     nbias, st);
   }
   return launch_mode<F32Full, F32Pipe>(mode, pipe, img, depth, focus, wpack,
                                        L, out, N, S, C, H, W, ks, d_min, d_max,

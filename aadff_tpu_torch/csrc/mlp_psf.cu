@@ -27,17 +27,15 @@
 //    are written row-major [64, f] into the free activation buffer.
 //  * bf16: 128 rows, three warpgroups (wg::): two consumers of 64 rows take
 //    turns running wgmma with activations in registers, a producer streams
-//    the weight chunks with bulk copies into an 8-stage mbarrier ring (at
-//    clusters of 2 or 4, multicast to every block of the cluster; off by
-//    default, as it does not pay).  The sigmoid and L1 norm run on the accumulators; each
-//    consumer leaves its rows [64, f] in shared memory and stores them
-//    itself.  What holds it at about half of its bound is the same as for
-//    the fused kernel: the weights each SM takes in per 128 rows, and the
-//    epilogues that the turns do not hide.
+//    the weight chunks with bulk copies into an 8-stage mbarrier ring.  The
+//    sigmoid and L1 norm run on the accumulators; each consumer leaves its
+//    rows [64, f] in shared memory and stores them itself.  What we think
+//    holds it at about half of its bound is the same as for the fused
+//    kernel (not measured): the weights each SM takes in per 128 rows, and
+//    the epilogues that the turns do not hide.
 // Either way a block's output is one contiguous run of rows * f floats in
 // device memory, stored with consecutive threads on consecutive addresses.
-// The grid of the bf16 kernel is padded to a whole number of clusters;
-// rows past N are zero and never stored.
+// Rows past N are zero and never stored.
 
 #include "mlp_tile.cuh"
 
@@ -96,8 +94,7 @@ int launch(const float* field, const void* wpack, const MlpLayout& L,
 }
 
 // The bf16 kernel (mlp_tile.cuh, wg::): 128 rows a block, consumer c on
-// rows 64c .. 64c+63; CL blocks a cluster.
-template <int CL>
+// rows 64c .. 64c+63.
 __global__ void __launch_bounds__(wg::kThreads, 1)
 mlp_psf_wg(const float* __restrict__ field, const void* __restrict__ wpack,
            const __grid_constant__ MlpLayout L, float* __restrict__ out,
@@ -106,16 +103,15 @@ mlp_psf_wg(const float* __restrict__ field, const void* __restrict__ wpack,
   char* sm = wg::aligned_smem(smem_raw);
   const int taps = L.f[L.n_layers - 1];
   const wg::Smem m = wg::smem_plan(nbias, taps, 0, 0);
-  const wg::Ring ring = wg::ring_init<CL>(sm, m);
+  const wg::Ring ring = wg::ring_init(sm, m);
   const int t = threadIdx.x;
 
   if (t >= 256) {  // the producer warpgroup
     wg::setmaxnreg_dec<wg::kProducerRegs>();
     if (t == 256) {
       const bf16* w = static_cast<const bf16*>(wpack) + L.w_off[0];
-      wg::produce<CL>(ring, reinterpret_cast<const char*>(w), nchunks, 1);
+      wg::produce(ring, reinterpret_cast<const char*>(w), nchunks, 1);
     }
-    if constexpr (CL > 1) wg::cluster_sync();
   } else {  // the two consumer warpgroups
     wg::setmaxnreg_inc<wg::kConsumerRegs>();
     float* bias = reinterpret_cast<float*>(sm + m.bias);
@@ -143,27 +139,23 @@ mlp_psf_wg(const float* __restrict__ field, const void* __restrict__ wpack,
         reinterpret_cast<float*>(sm + m.psf) + c * wg::psf_floats(taps);
     wg::Pos pos;
     wg::Turn turn(c);
-    wg::run_mlp<CL>(L, ring, pos, turn, bias, fld[0], fld[1], psf, taps,
-                      tw);
+    wg::run_mlp(L, ring, pos, turn, bias, fld[0], fld[1], psf, taps, tw);
     group_sync(2 + c, 128);
     const long long left = (long long)N - row0;
     const int rows = left <= 0 ? 0 : (left < 64 ? (int)left : 64);
     float* dst = out + row0 * taps;
     for (int i = tw; i < rows * taps; i += 128) dst[i] = psf[i];
     turn.finish();
-    if constexpr (CL > 1) wg::cluster_sync();
   }
 }
 
-template <int CL>
 int launch_wg(const float* field, const void* wpack, const MlpLayout& L,
               float* out, int N, int nchunks, int nbias,
               cudaStream_t stream) {
   const wg::Smem m = wg::smem_plan(nbias, L.f[L.n_layers - 1], 0, 0);
-  const int blocks = (N + wg::kPixels - 1) / wg::kPixels;
-  const dim3 grid((blocks + CL - 1) / CL * CL);
-  return wg::launch(mlp_psf_wg<CL>, grid, (size_t)m.total, CL, stream, field,
-                    wpack, L, out, N, nchunks, nbias);
+  const dim3 grid((N + wg::kPixels - 1) / wg::kPixels);
+  return wg::launch(mlp_psf_wg, grid, (size_t)m.total, stream, field, wpack,
+                    L, out, N, nchunks, nbias);
 }
 
 }  // namespace
@@ -173,11 +165,10 @@ extern "C" {
 // field [N, 4], out [N, f_last]: f32, contiguous, on the current device.
 // wpack: the packed weights, f32 or bf16 (`use_bf16` 0 or 1); layout: host
 // array of 5 ints per layer (k, f, fpad, w_off, b_off), as for
-// aadff_fused_psf_render; cluster: blocks a cluster of the bf16 kernel, 1
-// (no multicast), 2 or 4.  Launches on `stream` and returns its error (0 on
+// aadff_fused_psf_render.  Launches on `stream` and returns its error (0 on
 // success); it does not synchronise.
 int aadff_mlp_psf(const float* field, const void* wpack, const int* layout,
-                  int n_layers, float* out, int N, int use_bf16, int cluster,
+                  int n_layers, float* out, int N, int use_bf16,
                   void* stream) {
   if (N < 1 || (use_bf16 != 0 && use_bf16 != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -188,12 +179,7 @@ int aadff_mlp_psf(const float* field, const void* wpack, const int* layout,
     int nchunks = 0, nbias = 0;
     const int rc = wg::parse_wg_layout(layout, n_layers, &L, &nchunks, &nbias);
     if (rc != 0) return rc;
-    switch (cluster) {
-      case 1: return launch_wg<1>(field, wpack, L, out, N, nchunks, nbias, st);
-      case 2: return launch_wg<2>(field, wpack, L, out, N, nchunks, nbias, st);
-      case 4: return launch_wg<4>(field, wpack, L, out, N, nchunks, nbias, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    return launch_wg(field, wpack, L, out, N, nchunks, nbias, st);
   }
   const int rc = parse_layout(layout, n_layers, 4, &L);
   if (rc != 0) return rc;

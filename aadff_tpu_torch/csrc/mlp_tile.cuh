@@ -25,9 +25,10 @@
 // at the H100's 989 TFLOP/s dense bf16, ~36k cycles of tensor-core work
 // per 128-pixel tile and frame.  Every block must also bring all 1.14 MB
 // of bf16 weights from L2 into shared memory per tile and frame: at the
-// MMA's peak that is ~32 bytes a cycle into every SM, of the order of what
-// an SM can take in from L2, so the weight stream and the tensor cores are
-// twin limits.  What costs time besides: re-reading activation fragments
+// MMA's peak that is ~32 bytes a cycle into every SM.  If an SM cannot take
+// in much more than that from L2 (a guess: its intake rate has not been
+// measured), the weight stream and the tensor cores are twin limits.  What
+// costs time besides: re-reading activation fragments
 // from shared memory, threads spent on copies and block-wide barriers per
 // chunk, and epilogues during which the tensor cores idle.
 //
@@ -63,16 +64,10 @@
 //    MMA step) has one chunk whose rows 64-127 are zero; the last layer's
 //    121 outputs are zero-padded to 128.  Layer widths are therefore
 //    4(16) -> 64, 64 -> 256, n x 256 -> 256, 256 -> 121(128).
-//  * Clusters of CL blocks (1, 2 or 4) on neighbouring tiles walk the
-//    same chunk sequence; each block copies 1/CL of every chunk and
-//    multicasts it to all, so each chunk leaves L2 once per cluster, and
-//    a stage is refilled only when the consumers of every block of the
-//    cluster released it.  A grid is padded to a multiple of CL with
-//    blocks whose pixels are clamped and never stored: they still take
-//    part in the ring.  CL = 1 is the same kernel without multicast, and
-//    the default: the multicast halves the bytes read from L2 but not the
-//    bytes each SM takes in, and on the H100 clusters of 2 are slightly
-//    and clusters of 4 clearly slower (PERF.md, section 6).
+//  * Every block reads every chunk from L2 itself.  Clusters of 2 or 4
+//    blocks that multicast each chunk to all of them were measured slower
+//    on the H100 (2: 1.4-3.7%, 4: 8-12%; PERF.md, section 6): they halve
+//    the bytes read from L2 but not the bytes each SM takes in.
 //  * The sigmoid and the L1 norm run on the accumulators in registers (a
 //    row's sum is reduced over the 4 lanes of a quad), and write the
 //    normalised rows [64, taps] f32 into shared memory for the caller's
@@ -387,25 +382,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster; the .aligned form where the
-// whole block arrives together.
-__device__ __forceinline__ void cluster_sync_aligned() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
                "r"(count)
@@ -447,19 +423,6 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// Arrive on the barrier at the same offset in block `rank` of the cluster
-// (the default .release.cta: a cluster-scope release would fence every
-// arrival, and the wgmma reads it orders are complete at wgmma.wait_group).
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote)
-               : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote)
-               : "memory");
-}
-
 // 1-D bulk copy (TMA without a tensor map) of `bytes` from global memory
 // into this block's shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
@@ -468,20 +431,6 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The same, landing at the same offset in every block of `mask` and
-// completing on each one's barrier at the offset of `bar`.
-__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst,
-                                                    const void* src,
-                                                    uint32_t bytes,
-                                                    uint32_t bar,
-                                                    uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
       : "memory");
 }
 
@@ -593,9 +542,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // The shared-memory ring of weight chunks: stage addresses and the two
 // barrier arrays (shared addresses).  `full[s]` completes when chunk s has
-// landed (the producer's arrival plus its bytes); `empty[s]` when every
-// consumer warp of every block of the cluster is done with it (8 * CL
-// arrivals).
+// landed (the producer's arrival plus its bytes); `empty[s]` when the 8
+// consumer warps are done with it.
 struct Ring {
   uint32_t base, full, empty;
   __device__ uint32_t stage(int s) const { return base + s * kChunkBytes; }
@@ -613,9 +561,8 @@ struct Pos {
   }
 };
 
-// Set up the ring at the block's aligned base; every thread of the cluster
+// Set up the ring at the block's aligned base; every thread of the block
 // must call it before either role starts.
-template <int CL>
 __device__ __forceinline__ Ring ring_init(char* sm, const Smem& m) {
   Ring r;
   r.base = smem_addr(sm);
@@ -624,62 +571,42 @@ __device__ __forceinline__ Ring ring_init(char* sm, const Smem& m) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(r.full + 8 * s, 1);
-      mbar_init(r.empty + 8 * s, 8 * CL);
+      mbar_init(r.empty + 8 * s, 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if constexpr (CL > 1) {
-    cluster_sync_aligned();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
   return r;
 }
 
-// The block's dynamic shared memory, aligned up to 1024 bytes (the same
-// offset in every block, as the multicast needs).
+// The block's dynamic shared memory, aligned up to 1024 bytes (the
+// 128-byte swizzle's atom).
 __device__ __forceinline__ char* aligned_smem(char* raw) {
   const uint32_t a = smem_addr(raw);
   return raw + (((a + 1023u) & ~1023u) - a);
 }
 
 // The producer: one thread streams `frames` passes of the `nchunks` weight
-// chunks at w.  Block `rank` of a cluster of CL copies slice `rank` of each
-// chunk and multicasts it to every block, so each chunk is read from L2
-// once per cluster; each block's full barrier expects the whole chunk.
-template <int CL>
+// chunks at w, one bulk copy a chunk.
 __device__ __forceinline__ void produce(const Ring& r, const char* w,
                                         int nchunks, int frames) {
-  constexpr uint32_t kSlice = kChunkBytes / CL;
-  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
   Pos pos;
   for (int s = 0; s < frames; ++s) {
     for (int c = 0; c < nchunks; ++c) {
       const uint32_t full = r.full + 8 * pos.stage;
       mbar_wait(r.empty + 8 * pos.stage, pos.phase ^ 1u);
       mbar_expect_tx(full, kChunkBytes);
-      const uint32_t dst = r.stage(pos.stage) + rank * kSlice;
-      const char* src = w + (size_t)c * kChunkBytes + rank * kSlice;
-      if constexpr (CL == 1) {
-        bulk_copy(dst, src, kSlice, full);
-      } else {
-        bulk_copy_multicast(dst, src, kSlice, full, (uint16_t)((1u << CL) - 1));
-      }
+      bulk_copy(r.stage(pos.stage), w + (size_t)c * kChunkBytes, kChunkBytes,
+                full);
       pos.next();
     }
   }
 }
 
-// A consumer warp is done with stage s: lane c arrives on its empty barrier
-// in block c of the cluster.
-template <int CL>
+// A consumer warp is done with stage s: its lane 0 arrives on the stage's
+// empty barrier.
 __device__ __forceinline__ void release(const Ring& r, int s, int lane) {
-  const uint32_t bar = r.empty + 8 * s;
-  if constexpr (CL == 1) {
-    if (lane == 0) mbar_arrive(bar);
-  } else {
-    if (lane < CL) mbar_arrive_cluster(bar, lane);
-  }
+  if (lane == 0) mbar_arrive(r.empty + 8 * s);
 }
 
 // The two consumers take turns on the tensor cores (FlashAttention-3's
@@ -708,12 +635,12 @@ struct Turn {
 
 // Wait for the wgmma groups of the last N + 1 chunks in turn, releasing
 // each chunk (from stage s on) as soon as its group has completed.
-template <int CL, int N>
+template <int N>
 __device__ __forceinline__ void wait_release(const Ring& r, int s, int lane) {
   wgmma_wait<N>();
-  release<CL>(r, s, lane);
+  release(r, s, lane);
   if constexpr (N > 0) {
-    wait_release<CL, N - 1>(r, s + 1 == kStages ? 0 : s + 1, lane);
+    wait_release<N - 1>(r, s + 1 == kStages ? 0 : s + 1, lane);
   }
 }
 
@@ -721,7 +648,7 @@ __device__ __forceinline__ void wait_release(const Ring& r, int s, int lane) {
 // of the ring: 4 wgmma m64n128k16 a chunk, A from registers (k-slice t in
 // a[4t .. 4t+3]), one commit group a chunk, all issued in this consumer's
 // turn; a chunk is released as soon as its group has completed.
-template <int CL, int NK>
+template <int NK>
 __device__ __forceinline__ void gemm_n128(float* acc, uint32_t* a,
                                           const Ring& r, Pos& pos, int lane,
                                           Turn& turn) {
@@ -743,7 +670,7 @@ __device__ __forceinline__ void gemm_n128(float* acc, uint32_t* a,
     pos.next();
   }
   turn.pass();
-  wait_release<CL, NK - 1>(r, s0, lane);
+  wait_release<NK - 1>(r, s0, lane);
   fence_regs<64>(acc);
   fence_regs<16 * NK>(a);
 }
@@ -800,7 +727,6 @@ __device__ __forceinline__ void unstash(const uint4* stash, uint32_t* a,
 // Thread tw (0..127) brings the field (x, y, z, foc_z) of its pixels
 // 16 * (tw / 32) + lane / 4 (lo) and that + 8 (hi).  The next `nchunks` of
 // the ring are consumed in the packed order.
-template <int CL>
 __device__ __forceinline__ void run_mlp(const MlpLayout& L, const Ring& r,
                                         Pos& pos, Turn& turn,
                                         const float* bias, const float* lo,
@@ -830,7 +756,7 @@ __device__ __forceinline__ void run_mlp(const MlpLayout& L, const Ring& r,
   wgmma_wait<0>();
   fence_regs<32>(acc);
   fence_regs<4>(a0);
-  release<CL>(r, pos.stage, lane);
+  release(r, pos.stage, lane);
   pos.next();
   uint32_t a1[16];
   relu_bf16<4>(acc, bias, a1, q);
@@ -842,9 +768,9 @@ __device__ __forceinline__ void run_mlp(const MlpLayout& L, const Ring& r,
   // ever live
   uint4* stash = reinterpret_cast<uint4*>(psf);
   uint32_t ah[64];
-  gemm_n128<CL, 1>(acc, a1, r, pos, lane, turn);
+  gemm_n128<1>(acc, a1, r, pos, lane, turn);
   relu_bf16_stash(acc, bias, stash, q, tw);
-  gemm_n128<CL, 1>(acc, a1, r, pos, lane, turn);
+  gemm_n128<1>(acc, a1, r, pos, lane, turn);
   relu_bf16<8>(acc, bias + 128, ah + 32, q);
   unstash(stash, ah, tw);
   bias += L.fpad[1];
@@ -852,9 +778,9 @@ __device__ __forceinline__ void run_mlp(const MlpLayout& L, const Ring& r,
   // hidden layers 256 -> 256: the second half's output overwrites the
   // input fragments once its wgmma has completed
   for (int l = 2; l + 1 < L.n_layers; ++l) {
-    gemm_n128<CL, 4>(acc, ah, r, pos, lane, turn);
+    gemm_n128<4>(acc, ah, r, pos, lane, turn);
     relu_bf16_stash(acc, bias, stash, q, tw);
-    gemm_n128<CL, 4>(acc, ah, r, pos, lane, turn);
+    gemm_n128<4>(acc, ah, r, pos, lane, turn);
     relu_bf16<8>(acc, bias + 128, ah + 32, q);
     unstash(stash, ah, tw);
     bias += L.fpad[l];
@@ -862,7 +788,7 @@ __device__ __forceinline__ void run_mlp(const MlpLayout& L, const Ring& r,
 
   // last layer: f32 pre-activation, sigmoid, L1 over the taps of each row
   // (the 4 lanes of a quad hold a row's columns)
-  gemm_n128<CL, 4>(acc, ah, r, pos, lane, turn);
+  gemm_n128<4>(acc, ah, r, pos, lane, turn);
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -892,31 +818,16 @@ __device__ __forceinline__ void run_mlp(const MlpLayout& L, const Ring& r,
   }
 }
 
-// Launch `kernel` with kThreads threads a block and clusters of `cl`
-// blocks along x (grid.x a multiple of cl).  Returns the launch's error.
+// Launch `kernel` with kThreads threads a block.  Returns the launch's
+// error.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, int cl, cudaStream_t stream,
+int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
            Args... args) {
-  if (smem > MAX_SMEM || grid.x % cl != 0) {
-    return (int)cudaErrorInvalidConfiguration;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc into a plain shared library and
 load it with ctypes.
 
-The library has a C interface and includes no PyTorch header, so nvcc builds
-it in seconds.  It is built at first use into `build/aadff_tpu_torch/` under
-the repository root and rebuilt when a source, a header or a flag changes (a
-stamp file holds their hash).  Nothing here runs at import time.
+The library has a C interface and includes no PyTorch header; nvcc takes
+about a minute, most of it for the bf16 wgmma kernels.  It is built at first
+use into `build/aadff_tpu_torch/` under the repository root and rebuilt when
+a source, a header or a flag changes (a stamp file holds their hash).
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -24,6 +25,16 @@ BUILD_DIR = _ROOT / "build" / "aadff_tpu_torch"
 LIBRARY = BUILD_DIR / "libaadff_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes and restype of the library's C entry points (csrc/*.cu, extern "C")
+ENTRY_POINTS = {
+    "aadff_fused_psf_render": (
+        [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _P, _I, _I, _I, _I, _I, _I,
+         _F, _F, _I, _I, _I, _P], _I),
+    "aadff_mlp_psf": ([_P, _P, ctypes.POINTER(_I), _I, _P, _I, _I, _P], _I),
+    "aadff_error_string": ([_I], ctypes.c_char_p),
+}
 
 _lib = None
 
@@ -93,15 +104,9 @@ def kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.aadff_fused_psf_render.argtypes = [
-            p, p, p, p, ctypes.POINTER(i), i, p, i, i, i, i, i, i, f, f, i, i,
-            i, i, p]
-        lib.aadff_fused_psf_render.restype = i
-        lib.aadff_mlp_psf.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, i,
-                                      p]
-        lib.aadff_mlp_psf.restype = i
-        lib.aadff_error_string.argtypes = [i]
-        lib.aadff_error_string.restype = ctypes.c_char_p
+        for name, (argtypes, restype) in ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _lib = lib
     return _lib

@@ -38,14 +38,6 @@ from .render import local_psf_render
 launches = 0
 variant_launches: collections.Counter = collections.Counter()
 
-# Blocks a cluster of the bf16 kernels (both wrappers), read at every
-# launch: at 2 or 4 each weight chunk leaves L2 once per cluster and is
-# multicast to its blocks.  1 (no multicast) is the default because it was
-# the fastest on the H100 (PERF.md, section 6); 2 and 4 are kept to measure
-# that again.
-bf16_cluster = 1
-BF16_CLUSTERS = (1, 2, 4)
-
 COMPUTE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MODES = ("full", "mlponly", "convonly")
 
@@ -237,14 +229,6 @@ def packed_weights(mlp: MLP, compute_dtype) -> tuple[torch.Tensor, list[int]]:
     return packs[compute_dtype][1:]
 
 
-def cluster() -> int:
-    """`bf16_cluster`, checked."""
-    if bf16_cluster not in BF16_CLUSTERS:
-        raise ValueError(f"bf16_cluster must be one of {BF16_CLUSTERS}, got "
-                         f"{bf16_cluster}")
-    return bf16_cluster
-
-
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,
                  device: torch.device, dtype=torch.float32):
     """Raise unless t is a contiguous `dtype` tensor of `shape` on
@@ -313,7 +297,7 @@ def fused_psf_render(mlp: MLP, img: torch.Tensor, depth_mm: torch.Tensor,
             img.data_ptr(), depth_mm.data_ptr(), focus_mm.data_ptr(),
             wpack.data_ptr(), c_layout, n_layers, out.data_ptr(),
             N, S, C, H, W, ks, float(d_min), float(d_max), int(dt == "bf16"),
-            MODES.index(mode), int(bool(pipe)), cluster(), stream)
+            MODES.index(mode), int(bool(pipe)), stream)
     if rc != 0:
         raise RuntimeError("fused_psf_render kernel launch failed: "
                            + lib.aadff_error_string(rc).decode())

@@ -22,8 +22,8 @@ import ctypes
 import torch
 
 from ..psfnet.arch import MLP
-from .fused_render import (check_compute_dtype, check_tensor, cluster,
-                           mlp_reference, packed_weights)
+from .fused_render import (check_compute_dtype, check_tensor, mlp_reference,
+                           packed_weights)
 
 # Kernel launches since the count was last set to 0 (read by chip_smoke.py
 # to show that the two-stage render went through the kernel), in all and by
@@ -68,7 +68,7 @@ def mlp_psf(mlp: MLP, field: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aadff_mlp_psf(field.data_ptr(), wpack.data_ptr(), c_layout,
                                n_layers, out.data_ptr(), N, int(dt == "bf16"),
-                               cluster(), stream)
+                               stream)
     if rc != 0:
         raise RuntimeError("mlp_psf kernel launch failed: "
                            + lib.aadff_error_string(rc).decode())

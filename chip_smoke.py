@@ -15,7 +15,9 @@ scenes made from the seed:
 
   device      the card, its power limit, torch and CUDA versions
   build       nvcc builds the kernels into build/aadff_tpu_torch/; ptxas'
-              registers, spills and wgmma warnings of every kernel
+              registers, spills and wgmma warnings of every kernel; the
+              three bf16 (wgmma) kernels have no spills and no C7512
+              ("wgmma serialized")
   kernels     the fused PSF-render kernel against its plain PyTorch version
               on the card (TF32 off for both): the main-path stack
               [2,8,3,480,640] and a ragged 123x161 frame
@@ -28,11 +30,6 @@ scenes made from the seed:
               kernels: the fused render on the main-path stack and the
               ragged frame, the PSF MLP at N = 614,400 and N = 19,803; two
               launches of the stack are bit-identical
-  bf16_cluster
-              the bf16 kernels at 1 (multicast off, the default), 2 and 4
-              blocks a cluster, in turns: the stack, the ragged frame and N = 19,803
-              (grids padded to whole clusters) equal the default's output
-              bit for bit and match their plain versions; times of each
   two_stage   PSFNet.render of tests/goldens/render_goldens.npz (120x160 on
               the 480x640 PSFNet) and render_stack of a [2,8] stack at
               240x320, in f32 and in bf16, take field -> PSF-MLP kernel ->
@@ -110,14 +107,11 @@ BF16_FLOPS = 989e12         # H100 SXM, bf16 on the tensor cores, dense
 HBM_BYTES_S = 3.35e12
 PEAK = {"f32": F32_FLOPS, "bf16": BF16_FLOPS}
 WEIGHT_BYTES = {"f32": 4, "bf16": 2}
-# The bf16 kernels' design, and the times of the previous bf16 design (the
-# mma.sync stage; PERF.md section 6, H100 80GB HBM3 at 700.00 W), by variant.
+# The bf16 kernels' design, and their instantiations as ptxas names them.
 BF16_DESIGN = ("wgmma stage: 2 consumer warpgroups (A in registers, turns on "
                "the tensor cores) + 1 producer, bulk-copy ring of 16 KB "
-               "swizzled chunks, cluster multicast at 2 or 4 (off at 1)")
-PREV_BF16_MS = {"stack/bf16/full": [28.3, 28.5], "frame/bf16/full": [1.87, 1.98],
-               "bf16": [3.59, 3.74], "frame/bf16/mlponly": [1.83, 1.92],
-               "frame/bf16/full+pipe": [2.21, 2.30]}
+               "swizzled chunks")
+BF16_KERNELS = ("fused_psf_render_wg<0>", "fused_psf_render_wg<1>", "mlp_psf_wg")
 
 
 class SmokeError(RuntimeError):
@@ -219,13 +213,14 @@ def library_mlp_bf16(mlp):
 def ptxas_report(log):
     """{kernel: {registers, spill_stores, spill_loads, warnings}} from
     nvcc's -Xptxas -v output; a kernel is named by its template and its
-    integer template arguments (the f32 stage's geometry, the mode, the
-    cluster size)."""
+    integer template arguments (the f32 stage's geometry, the mode)."""
     def short(mangled):
-        m = re.search(r"(fused_psf_render_wg|fused_psf_render_kernel|"
-                      r"mlp_psf_wg|mlp_psf_kernel)I(.*?)EEvP", mangled)
+        m = re.search(r"\d(fused_psf_render_wg|fused_psf_render_kernel|"
+                      r"mlp_psf_wg|mlp_psf_kernel)(I.*?EEvP|EP)", mangled)
         if not m:
             return mangled
+        if m.group(2) == "EP":
+            return m.group(1)
         return f"{m.group(1)}<{','.join(re.findall(r'Li(-?\d+)E', m.group(2)))}>"
     report, current = {}, None
     for ln in log.splitlines():
@@ -314,13 +309,18 @@ def main():
     built = _build.build()
     _build.kernels()
     ptxas = ptxas_report(built["log"])
-    bf16_ptxas = {k: v for k, v in ptxas.items() if "_wg<" in k}
     phase("build", t0, nvcc_s=round(built["seconds"], 3), built=built["built"],
           library=os.path.relpath(built["path"], ROOT), ptxas=ptxas)
     # (a library built by an earlier run leaves no log to read)
-    check(not built["built"] or (len(bf16_ptxas) == 9 and all(
-        "registers" in v for v in bf16_ptxas.values())),
-        f"ptxas report of the bf16 kernels: {sorted(bf16_ptxas)}")
+    if built["built"]:
+        check(sorted(k for k in ptxas if "_wg" in k) == sorted(BF16_KERNELS),
+              f"ptxas report of the bf16 kernels: {sorted(ptxas)}")
+        for name in BF16_KERNELS:
+            rec = ptxas[name]
+            check("registers" in rec and rec.get("spill_stores") == 0
+                  and rec.get("spill_loads") == 0, f"{name}: ptxas {rec}")
+            check("C7512" not in rec["warnings"],
+                  f"{name}: ptxas serialized its wgmma (C7512): {rec}")
 
     # ---- kernel against its plain version, TF32 off for both -------------
     t0 = time.perf_counter()
@@ -464,7 +464,7 @@ def main():
     phase("bf16_kernels", t0, tol={"max_abs": BF16_MAX_ABS,
                                    "mean_abs": BF16_MEAN_ABS},
           l1_px_tol=L1_PX, rowsum_tol=ROWSUM_TOL, design=BF16_DESIGN,
-          cluster=fused_render.bf16_cluster, repeat_bit_equal=repeat_equal,
+          repeat_bit_equal=repeat_equal,
           render={**split_errors(b1_16, b1_16_f32),
                   "ms": b1_16_ms, "plain_ms": b1_16_plain_ms,
                   "bound_ms": b1_16_bound, "bound_by": b1_16_bound_by,
@@ -484,50 +484,6 @@ def main():
     for name, err in b3_16_rowsum.items():
         check(err <= ROWSUM_TOL, f"{name}: bf16 row sums {err:.3g}")
     check(repeat_equal, "two launches of the bf16 stack differ")
-
-    # ---- the bf16 kernels with multicast off (1 block a cluster, the
-    # default) and on (2 and 4), in turns; padded grids on the ragged cases
-    t0 = time.perf_counter()
-    default_cluster = fused_render.bf16_cluster
-    field19 = fields["ragged_19803x4"].reshape(-1, 4).contiguous()
-    field614 = fields["field_614400x4"].reshape(-1, 4).contiguous()
-    ragged_args = (net.model, rimg, rdepth, rfocus, KS, net.d_min, net.d_max, bf16)
-
-    def bf16_outputs():
-        return {"stack": fused_render.fused_psf_render(*render_args, bf16),
-                "ragged_frame": fused_render.fused_psf_render(*ragged_args),
-                "b3_19803": mlp_psf.mlp_psf(net.model, field19, bf16),
-                "b3_614400": mlp_psf.mlp_psf(net.model, field614, bf16)}
-    base = bf16_outputs()
-    plain = {"ragged_frame": fused_render.fused_psf_render_reference(*ragged_args),
-             "b3_19803": mlp_psf.mlp_psf_reference(net.model, field19, bf16)}
-    sizes = fused_render.BF16_CLUSTERS
-    per_cluster = {cl: {"b1_ms": [], "b3_ms": []} for cl in sizes}
-    for cl in (*sizes, *reversed(sizes)):
-        fused_render.bf16_cluster = cl
-        rec = per_cluster[cl]
-        if "equal_to_default" not in rec:
-            outs = bf16_outputs()
-            torch.cuda.synchronize()
-            rec["equal_to_default"] = all(torch.equal(outs[k], base[k]) for k in base)
-            rec.update({f"{k}_vs_plain": errors(outs[k], plain[k]) for k in plain})
-            del outs
-        rec["b1_ms"].append(time_ms(torch, lambda: fused_render.fused_psf_render(
-            *render_args, bf16), 3))
-        rec["b3_ms"].append(time_ms(torch, lambda: mlp_psf.mlp_psf(
-            net.model, field614, bf16), 10))
-    fused_render.bf16_cluster = default_cluster
-    del base
-    phase("bf16_cluster", t0, default=default_cluster, tol=[BF16_MAX_ABS, BF16_MEAN_ABS],
-          grids={"ragged_frame_tiles_x": -(-161 // 16), "b3_19803_blocks": -(-19803 // 128)},
-          clusters={str(cl): rec for cl, rec in per_cluster.items()})
-    for cl, rec in per_cluster.items():
-        check(rec["equal_to_default"], f"cluster {cl}: output differs from cluster "
-              f"{default_cluster}")
-        for k in plain:
-            mx, mean = rec[f"{k}_vs_plain"]
-            check(mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS,
-                  f"cluster {cl}, {k}: vs plain max {mx:.3g}, mean {mean:.3g}")
 
     # ---- the two-stage route: frames off the sensor's size ---------------
     t0 = time.perf_counter()
@@ -821,14 +777,11 @@ def main():
                 "tol": tol, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms, **extra}
 
-    def bf16_extra(variant_name, kernel_prefix):
-        """The bf16 stage's design, the previous design's time, and ptxas'
-        registers and spills of the instantiation that ran (the default
-        cluster size)."""
-        inst = f"{kernel_prefix}{fused_render.bf16_cluster}>"
-        return {"design": BF16_DESIGN, "prev_ms": PREV_BF16_MS[variant_name],
-                "cluster": fused_render.bf16_cluster,
-                "ptxas": {inst: ptxas.get(inst)}}
+    def bf16_extra(kernel):
+        """The bf16 stage's design, and ptxas' registers and spills of the
+        kernel that ran (from this run's build; None when an earlier run
+        built the library)."""
+        return {"design": BF16_DESIGN, "ptxas": {kernel: ptxas.get(kernel)}}
 
     kernels = [
         entry("fused_psf_render", render_src, b1, main_launches, (err_stack,),
@@ -838,8 +791,8 @@ def main():
               bf16_launches["stack/bf16/full"], b1_16["stack_2x8x3x480x640"],
               bf16_tol, b1_16_ms, b1_16_plain_ms, (b1_16_bound, b1_16_bound_by),
               variant="stack/bf16/full",
-              l1_px_vs_f32=b1_16_f32["stack_2x8x3x480x640"][1], **bf16_extra(
-                  "stack/bf16/full", "fused_psf_render_wg<0,")),
+              l1_px_vs_f32=b1_16_f32["stack_2x8x3x480x640"][1],
+              **bf16_extra("fused_psf_render_wg<0>")),
         entry("fused_psf_render_frame", render_src, b2,
               frame_counts["frame/f32/full"], (err_ragged,), KERNEL_TOL,
               frame_ms, frame_plain_ms, (frame_bound_ms, bound_by),
@@ -847,8 +800,7 @@ def main():
         entry("fused_psf_render_frame_bf16", render_src, b2,
               frame_counts["frame/bf16/full"], b1_16["ragged_1x1x3x123x161"],
               bf16_tol, frame16_ms, frame16_plain_ms, frame16_bound,
-              variant="frame/bf16/full", **bf16_extra(
-                  "frame/bf16/full", "fused_psf_render_wg<0,")),
+              variant="frame/bf16/full", **bf16_extra("fused_psf_render_wg<0>")),
         entry("mlp_psf", mlp_src, "aadff_tpu/ops/pallas_mlp.py:100",
               route_launches["f32"], (max(mlp_err.values()),), KERNEL_TOL,
               mlp_ms, mlp_plain_ms, (mlp_bound, mlp_bound_by),
@@ -858,7 +810,7 @@ def main():
               b3_16_ms, b3_16_plain_ms, (b3_16_bound, b3_16_bound_by),
               library_ms=b3_16_library_ms, variant="bf16",
               l1_px_vs_f32=b3_16_f32["field_614400x4"][1],
-              **bf16_extra("bf16", "mlp_psf_wg<")),
+              **bf16_extra("mlp_psf_wg")),
     ]
     for name, rec in split.items():
         kernels.append(entry(
@@ -869,8 +821,8 @@ def main():
             rec["plain_ms"], (rec["bound_ms"], rec["bound_by"]),
             variant=name, **({"vs_full_max_abs": rec["vs_full_max_abs"]}
                              if "vs_full_max_abs" in rec else {}),
-            **(bf16_extra(name, "fused_psf_render_wg<1," if "mlponly" in name
-                          else "fused_psf_render_wg<0,") if "/bf16/" in name else {})))
+            **(bf16_extra("fused_psf_render_wg<1>" if "mlponly" in name
+                          else "fused_psf_render_wg<0>") if "/bf16/" in name else {})))
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,7 +26,9 @@ Tolerances, each with its reason:
   from its f32 one: bf16 convolutions round once in cuDNN/oneDNN but twice
   in XLA, which adds the bias in bf16 after rounding the sum).
 """
+import ctypes
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +44,7 @@ from aadff_tpu.psfnet import MLP as JaxMLP
 from aadff_tpu_torch.models.aifnet import AiFDepthNet
 from aadff_tpu_torch.models.convert import (aifnet_state_from_flax,
                                             load_flax_aifnet)
-from aadff_tpu_torch.ops import fused_render, mlp_psf
+from aadff_tpu_torch.ops import _build, fused_render, mlp_psf
 from aadff_tpu_torch.psfnet import psfnet
 from aadff_tpu_torch.psfnet.arch import MLP
 from aadff_tpu_torch.psfnet.convert import flax_mlp_to_torch_state
@@ -212,20 +214,31 @@ def test_pack_bf16_decodes_random_mlps(seed, hidden_layers, out_features):
     assert len(decoded) == hidden_layers + 3
 
 
-def test_bf16_cluster_knob():
-    """The bf16 kernels' cluster size is 1, 2 or 4; anything else raises
-    before a launch."""
-    assert fused_render.bf16_cluster in fused_render.BF16_CLUSTERS
-    saved = fused_render.bf16_cluster
-    try:
-        for size in fused_render.BF16_CLUSTERS:
-            fused_render.bf16_cluster = size
-            assert fused_render.cluster() == size
-        fused_render.bf16_cluster = 3
-        with pytest.raises(ValueError, match="bf16_cluster"):
-            fused_render.cluster()
-    finally:
-        fused_render.bf16_cluster = saved
+def _c_params(name: str) -> list[str]:
+    """The parameter types of the C entry point `name` in csrc/*.cu."""
+    for src in _build.SOURCES:
+        m = re.search(rf"\n(?:int|const char\*) {name}\(([^)]*)\)",
+                      src.read_text())
+        if m:
+            return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+    raise AssertionError(f"{name} not found in {_build.SOURCES}")
+
+
+@pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
+def test_kernel_entry_point_argtypes(name):
+    """The ctypes argtypes the wrappers bind match the C signature in the
+    source, parameter by parameter: a pointer for a pointer, c_int for int,
+    c_float for float (a mismatch would pass garbage to the launch)."""
+    argtypes, _ = _build.ENTRY_POINTS[name]
+    params = _c_params(name)
+    assert len(params) == len(argtypes), (params, argtypes)
+    for c_type, py_type in zip(params, argtypes):
+        if c_type.endswith("*"):
+            assert py_type is ctypes.c_void_p or issubclass(
+                py_type, ctypes._Pointer), (name, c_type, py_type)
+        else:
+            assert {"int": ctypes.c_int, "float": ctypes.c_float}[c_type] \
+                is py_type, (name, c_type, py_type)
 
 
 # ---- the fused render (B1/B2) ---------------------------------------------
