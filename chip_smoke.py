@@ -55,6 +55,18 @@ scenes made from the seed:
               the guard
   dfv_eval    one DFVNet validation batch: masked AbsRel, MSE, MAE, RMSE,
               acc1
+  entry       the entry point as users run it: configs/aber_aware_dff_synth.yml
+              with its SynthMiddlebury paths pointing at 4 train and 2 val
+              scenes from dff/synth.make_scenes, written as PNGs; the twin
+              of scripts/3_aber_aware_dff_synth.py, in this process, runs
+              one chunk, a resumed chunk with --k-per-dispatch 2,
+              --eval-only best and a --bf16 chunk in a second workdir.
+              Checks: progress.json at epoch 2 after 4 steps, the saved
+              state loads bit for bit equal to the trained one, finite
+              losses with none skipped, finite metrics, eval_final.json,
+              and one B1 f32 launch per render (train steps and validation
+              scenes).  Reports step_ms per step, validation forward ms,
+              PNG read ms per scene and seconds per epoch
 Each phase prints one JSON line with its elapsed seconds; then one
 {"kernels": [...]} line, the card's name and power limit as nvidia-smi gives
 them, and as the last line {"ok": true, "device": {...}}.  Any failed check
@@ -80,6 +92,7 @@ BS, N_STACK, H, W, KS = 2, 8, 480, 640, 11   # configs/aber_aware_dff_{synth,dfv
 LR, EPOCHS = 1e-4, 20
 H2, W2 = 240, 320           # a stack off the sensor's size: the two-stage route
 TRAIN_STEPS = 3
+ENTRY_TRAIN, ENTRY_VAL = 4, 2   # scenes of the entry phase: 2 steps an epoch
 # Kernel against plain version: both sum in f32 but in another order (the
 # kernel's 11-layer GEMMs k by k, cuBLAS in blocks), which moves outputs in
 # [0, 1] by a few 1e-7.  The same holds between the two render routes.
@@ -264,6 +277,155 @@ def split_errors(vs_plain, vs_f32):
             "mean_abs_err": {k: v[1] for k, v in vs_plain.items()},
             "vs_f32_max_abs": {k: v[0] for k, v in vs_f32.items()},
             "vs_f32_l1_px": {k: v[1] for k, v in vs_f32.items()}}
+
+
+def write_scene_dirs(root, aif, depth):
+    """Scenes in the SynthMiddlebury layout: <root>/scene<i>/im0.png (8-bit
+    RGB) and depth.png (uint16, mm), from aif [n, 3, H, W] in [0, 1] and
+    depth [n, 1, H, W] in m."""
+    from aadff_tpu_torch.utils.image import write_png  # noqa: PLC0415
+
+    rgb = (aif * 255).round().clamp(0, 255).byte().permute(0, 2, 3, 1).cpu().numpy()
+    mm = (depth[:, 0] * 1000).round().clamp(0, 65535).cpu().numpy().astype("uint16")
+    for i in range(rgb.shape[0]):
+        d = os.path.join(root, f"scene{i}")
+        os.makedirs(d)
+        write_png(os.path.join(d, "im0.png"), rgb[i])
+        write_png(os.path.join(d, "depth.png"), mm[i])
+    return root
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_entry(torch, np, gen, device, make_scenes, trainer, fused_render,
+              mlp_psf):
+    """The entry phase: `configs/aber_aware_dff_synth.yml` with its two
+    SynthMiddlebury paths pointing at ENTRY_TRAIN + ENTRY_VAL scenes written
+    as PNGs, then the twin of scripts/3_aber_aware_dff_synth.py in this
+    process: one chunk, a resumed chunk with 2 steps per call, --eval-only
+    best, and a --bf16 chunk in a second workdir.  Returns the phase's
+    fields; raises SmokeError on a failed check."""
+    import shutil  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    from aadff_tpu_torch.dff.dataset import Middlebury  # noqa: PLC0415
+    from aadff_tpu_torch.scripts import aber_aware_dff_synth as twin  # noqa: PLC0415
+    from aadff_tpu_torch.utils.image import read_png  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="aadff_entry_")
+    try:
+        train_dir = write_scene_dirs(os.path.join(tmp, "train"),
+                                     *make_scenes(ENTRY_TRAIN, H, W, gen, device))
+        val_dir = write_scene_dirs(os.path.join(tmp, "val"),
+                                   *make_scenes(ENTRY_VAL, H, W, gen, device))
+        with open(os.path.join(ROOT, "configs", "aber_aware_dff_synth.yml")) as f:
+            text = f.read()
+        for old, new in (("'./datasets/SynthMiddlebury/train'", repr(train_dir)),
+                         ("'./datasets/SynthMiddlebury/val'", repr(val_dir)),
+                         ("'./lenses/", repr(ROOT + "/lenses/")[:-1]),
+                         ("'./ckpt/", repr(ROOT + "/ckpt/")[:-1])):
+            check(old in text, f"config has no {old}")
+            text = text.replace(old, new)
+        config = os.path.join(tmp, "config.yml")
+        with open(config, "w") as f:
+            f.write(text)
+        png_ms, scene_ms = [], []
+        val_set = Middlebury(val_dir, resize=(H, W))
+        for i, scene in enumerate(val_set.scenes):
+            t = time.perf_counter()
+            read_png(os.path.join(val_dir, scene, "im0.png"))
+            read_png(os.path.join(val_dir, scene, "depth.png"))
+            png_ms.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            val_set[i]
+            scene_ms.append(1e3 * (time.perf_counter() - t))
+
+        wd, wd16 = os.path.join(tmp, "run"), os.path.join(tmp, "run_bf16")
+        common = ["--config", config, "--total-epochs", "2",
+                  "--epochs-per-chunk", "1"]
+        torch.cuda.synchronize()
+        reset_counts(fused_render, mlp_psf)
+        secs = {}
+        t = time.perf_counter()
+        state1 = twin.main([*common, "--workdir", wd])
+        secs["chunk"] = time.perf_counter() - t
+        fresh = trainer.create_train_state(type(state1.model)().to(device), LR, 1)
+        saved = trainer.load_checkpoint(wd, fresh, "state")
+        a, b = state1.model.state_dict(), saved.model.state_dict()
+        resumed_equal = (all(torch.equal(a[k], b[k]) for k in a)
+                         and all(torch.equal(x, y) for x, y in zip(
+                             state1.opt.mu + state1.opt.nu,
+                             saved.opt.mu + saved.opt.nu))
+                         and int(saved.opt.count) == int(state1.opt.count)
+                         and int(saved.step) == int(state1.step))
+        del state1, fresh, saved, a, b
+        t = time.perf_counter()
+        state2 = twin.main([*common, "--workdir", wd, "--k-per-dispatch", "2"])
+        secs["resumed_chunk_k2"] = time.perf_counter() - t
+        steps = int(state2.step)
+        del state2
+        t = time.perf_counter()
+        twin.main(["--config", config, "--workdir", wd, "--eval-only", "best"])
+        secs["eval_only"] = time.perf_counter() - t
+        t = time.perf_counter()
+        twin.main([*common, "--workdir", wd16, "--total-epochs", "1", "--bf16"])
+        secs["bf16_chunk"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = dict(fused_render.variant_launches)
+        mlp_launches = mlp_psf.launches
+
+        with open(os.path.join(wd, "progress.json")) as f:
+            progress = json.load(f)
+        logs = read_jsonl(os.path.join(wd, "train_log.jsonl"))
+        logs16 = read_jsonl(os.path.join(wd16, "train_log.jsonl"))
+        val = read_jsonl(os.path.join(wd, "metrics.jsonl"))
+        val16 = read_jsonl(os.path.join(wd16, "metrics.jsonl"))
+        final_path = os.path.join(wd, "eval_final.json")
+        check(os.path.exists(final_path), "no eval_final.json")
+        with open(final_path) as f:
+            final = json.load(f)
+        # a render per train step and per validation scene of each validation
+        renders = (sum(r["steps"] for r in logs + logs16)
+                   + ENTRY_VAL * (len(val) + len(val16) + 1))
+        metric_keys = ("abs_rel", "sq_rel", "mse", "mae", "rmse", "rmse_log",
+                       "acc1", "acc2", "acc3", "psnr", "ssim")
+        fields = {
+            "config": "configs/aber_aware_dff_synth.yml", "scenes": {
+                "train": ENTRY_TRAIN, "val": ENTRY_VAL, "res": [H, W]},
+            "progress": progress, "steps": steps,
+            "train_log": [{k: r[k] for k in ("epoch", "loss", "steps", "skipped",
+                                             "sec")} for r in logs],
+            "step_ms": [r["step_ms"] for r in logs],
+            "bf16_train_log": [{k: r[k] for k in ("epoch", "loss", "steps",
+                                                  "skipped", "sec")}
+                               for r in logs16],
+            "bf16_step_ms": [r["step_ms"] for r in logs16],
+            "val": val, "eval_final": final,
+            "val_forward_ms": [1e3 * m["avg_time"] for m in val + [final]],
+            "png_read_ms_per_scene": png_ms,
+            "dataset_item_ms_per_scene": scene_ms,
+            "run_s": secs, "resumed_equal": resumed_equal,
+            "launches": launches, "mlp_psf_launches": mlp_launches,
+            "expected_renders": renders,
+        }
+        check(progress["epoch"] == 2 and steps == 4,
+              f"progress {progress}, {steps} steps")
+        check(resumed_equal, "the resumed state differs from the saved one")
+        for r in logs + logs16:
+            check(np.isfinite(r["loss"]) and r["skipped"] == 0,
+                  f"train epoch {r['epoch']}: loss {r['loss']}, "
+                  f"{r['skipped']} skipped")
+        for m in val + val16 + [final]:
+            check(all(np.isfinite(m[k]) for k in metric_keys),
+                  f"non-finite validation metrics {m}")
+        check(launches == {"stack/f32/full": renders} and mlp_launches == 0,
+              f"entry launches {launches}, expected {renders} stack/f32/full")
+        return fields
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -762,6 +924,15 @@ def main():
     check(dfv_launches == TRAIN_STEPS + 1, f"{dfv_launches} DFV-path launches")
     check(mlp_psf.launches == 0, "the DFV path left the fused route")
 
+    # ---- the entry point as users run it: YAML config and PNG scene
+    # directories -> chunked training, resume, evaluation -> checkpoints ----
+    t0 = time.perf_counter()
+    del dfv, dfv_state
+    entry = run_entry(torch, np, gen, device, make_scenes, trainer,
+                      fused_render, mlp_psf)
+    entry_launches = entry["launches"]["stack/f32/full"]
+    phase("entry", t0, **entry)
+
     render_src = "aadff_tpu_torch/csrc/fused_psf_render.cu"
     mlp_src = "aadff_tpu_torch/csrc/mlp_psf.cu"
     b1 = "aadff_tpu/ops/pallas_render.py:336"
@@ -786,7 +957,8 @@ def main():
     kernels = [
         entry("fused_psf_render", render_src, b1, main_launches, (err_stack,),
               KERNEL_TOL, kernel_ms, plain_ms, (bound_ms, bound_by),
-              variant="stack/f32/full", dfv_launches=dfv_launches),
+              variant="stack/f32/full", dfv_launches=dfv_launches,
+              entry_launches=entry_launches),
         entry("fused_psf_render_bf16", render_src, b1,
               bf16_launches["stack/bf16/full"], b1_16["stack_2x8x3x480x640"],
               bf16_tol, b1_16_ms, b1_16_plain_ms, (b1_16_bound, b1_16_bound_by),

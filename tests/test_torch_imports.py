@@ -17,12 +17,14 @@ PORT_FILES = sorted(
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import aadff_tpu_torch, aadff_tpu_torch.train.trainer, "
-            "aadff_tpu_torch.train.dff_dfv, aadff_tpu_torch.psfnet.psfnet, "
-            "aadff_tpu_torch.ops.mlp_psf, aadff_tpu_torch.models.dfv.convert, "
-            "sys; "
+    """Every module of the port, the entry script included."""
+    modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
+               for p in PORT_FILES if p.startswith("aadff_tpu_torch")]
+    assert "aadff_tpu_torch.scripts.aber_aware_dff_synth" in modules
+    code = (f"import importlib, sys; "
+            f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'flax', 'msgpack', 'aadff_tpu.'))]; "
+            "('jax.', 'flax', 'msgpack', 'yaml', 'cv2', 'PIL', 'aadff_tpu.'))]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
