@@ -2,21 +2,17 @@
 of `aadff_tpu/dff/factory.py`)."""
 from __future__ import annotations
 
-import os
-
 from ..psfnet.psfnet import PSFNet
 from .dataset import FlyingThings3D, Matterport3D, Middlebury, RealWorld
 
 
 def get_lens(args: dict, device="cuda"):
     """(train lens, test lens) of a run config: each a `PSFNet` at
-    args["res"] and args["ks"] on `device`, with the weights of its
-    section's `psfnet_path`.
-
-    The section's `lens` names the lens JSON, which must exist; the port
-    keeps its path (`PSFNet.lens_path`) but builds no ray-traced lens from
-    it (the optics are ROADMAP A6).  `lens: thinlens` raises until the
-    port has ThinLens (ROADMAP A5).
+    args["res"] and args["ks"] on `device`, built on its section's lens
+    JSON (the port's ray-traced `Lens`, `PSFNet.lens`; the file's path is
+    `PSFNet.lens_path`), with the weights of the section's `psfnet_path`.
+    `lens: thinlens` raises until the port has ThinLens's renderer
+    (ROADMAP A5).
     """
     sensor_res = tuple(args["res"])
 
@@ -26,11 +22,8 @@ def get_lens(args: dict, device="cuda"):
             raise NotImplementedError(
                 f"{section}.lens 'thinlens': the port has no ThinLens yet "
                 f"(ROADMAP A5)")
-        if not os.path.exists(name):
-            raise FileNotFoundError(f"{section}.lens: no lens file {name}")
         lens = PSFNet(kernel_size=args["ks"], sensor_res=sensor_res,
-                      device=device)
-        lens.lens_path = name
+                      device=device, filename=name)
         lens.load_net(args[section]["psfnet_path"])
         return lens
 

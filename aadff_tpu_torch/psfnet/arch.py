@@ -23,6 +23,18 @@ class MLP(nn.Module):
         layers[-1] = nn.Sigmoid()
         self.net = nn.Sequential(*layers)
 
+    @torch.no_grad()
+    def init_lecun(self, generator: torch.Generator):
+        """Flax Dense's initialisation (`lecun_normal`: a normal truncated to
+        +-2 sigma, scaled to variance 1/fan_in; zero biases), drawn from
+        `generator`."""
+        for lin in self.linears():
+            std = (1.0 / lin.in_features) ** 0.5 / 0.87962566103423978
+            w = torch.empty(lin.weight.shape, device=generator.device)
+            nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=generator)
+            lin.weight.copy_(w * std)
+            lin.bias.zero_()
+
     def linears(self) -> list[nn.Linear]:
         return [m for m in self.net if isinstance(m, nn.Linear)]
 

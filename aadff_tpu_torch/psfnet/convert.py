@@ -1,6 +1,6 @@
-"""Flax `MLP` params -> torch state dict (the port of
-`aadff_tpu/psfnet/convert.py:35-46`).  Flax `Dense_i.kernel` is [in, out];
-torch `Linear.weight` is [out, in]."""
+"""Flax `MLP` params <-> torch (the port of
+`aadff_tpu/psfnet/convert.py:35-46`, and its inverse for `save_net`).
+Flax `Dense_i.kernel` is [in, out]; torch `Linear.weight` is [out, in]."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,3 +18,14 @@ def flax_mlp_to_torch_state(variables: dict) -> dict[str, torch.Tensor]:
         out[f"net.{2 * i}.bias"] = torch.from_numpy(
             np.array(layer["bias"], np.float32))
     return out
+
+
+def torch_mlp_to_flax(model) -> dict:
+    """The inverse: `MLP` -> {'params': {'Dense_i': {'kernel', 'bias'}}} of
+    numpy f32 arrays, the variables the JAX package's `PSFNet` saves."""
+    return {"params": {
+        f"Dense_{i}": {
+            "kernel": np.ascontiguousarray(
+                lin.weight.detach().cpu().numpy().T, dtype=np.float32),
+            "bias": lin.bias.detach().cpu().numpy().astype(np.float32),
+        } for i, lin in enumerate(model.linears())}}

@@ -39,7 +39,9 @@ from ..utils.image import imwrite_colormap, write_png
 class Adam:
     """optax.adam (b1 0.9, b2 0.999, eps 1e-8) scaled by
     optax.cosine_decay_schedule(lr, decay_steps, alpha=0); moments and counts
-    are device tensors.
+    are device tensors.  With `weight_decay` it is optax.adamw: the update
+    is -lr * (adam + weight_decay * p) (`add_decayed_weights`); the default
+    0 is plain Adam, which the DFF steps use.
 
     Two counts, as optax keeps them: `count` (ScaleByAdamState.count) for the
     bias correction and `schedule_count` (ScaleByScheduleState.count), at
@@ -48,12 +50,13 @@ class Adam:
     its optimizer state (`load_checkpoint`)."""
 
     def __init__(self, params, lr: float, decay_steps: int, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0):
         if decay_steps <= 0:
             raise ValueError(f"decay_steps must be positive, got {decay_steps}")
         self.params = list(params)
         self.lr, self.decay_steps = lr, float(decay_steps)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = torch.zeros((), dtype=torch.int32,
@@ -76,6 +79,8 @@ class Adam:
             m_new = (1 - self.b1) * g + self.b1 * m
             v_new = (1 - self.b2) * g ** 2 + self.b2 * v
             update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps)
+            if self.weight_decay:
+                update = update + self.weight_decay * p
             p.copy_(torch.where(ok, p + update * neg_lr, p))
             m.copy_(torch.where(ok, m_new, m))
             v.copy_(torch.where(ok, v_new, v))

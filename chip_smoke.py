@@ -67,6 +67,24 @@ scenes made from the seed:
               and one B1 f32 launch per render (train steps and validation
               scenes).  Reports step_ms per step, validation forward ms,
               PNG read ms per scene and seconds per epoch
+  optics      the ray tracer on the card, both lens files
+              (lenses/rf50mm.json, lenses/50mm_f2.8.json at 480x640):
+              derived values, pupils, the trace of every wavelength and the
+              refocus at 500 / 2,400 / 20,000 mm held to
+              tests/goldens/optics_goldens.npz; psf_impl from the same
+              draws and lens scalars on the card and on the CPU; PSF sums
+  psf_fit     the twin of scripts/1_fit_psfnet.py in this process at its
+              configuration (rf50mm, 480x640, ks 11, bs 128, spp 4096, lr
+              1e-4 AdamW with the cosine schedule, warm start from the
+              converted checkpoint), cut to 100 iterations: finite losses,
+              the last 10 within 1.5x of the first 10, the saved weights
+              reload equal; ms and kernels per iteration (CUDA events,
+              torch.profiler), the device's idle share and peak memory;
+              then one [2,8,3,480,640] stack through B1 f32 with the
+              fitted weights, held to its plain version
+  psf_gate    the twin of scripts/psf_gate.py on the converted checkpoint,
+              20 foci x 10 z at spp 4096: L1 within 5% and L2 within 10%
+              of PSF_GATE.json's record; its seconds
 Each phase prints one JSON line with its elapsed seconds; then one
 {"kernels": [...]} line, the card's name and power limit as nvidia-smi gives
 them, and as the last line {"ok": true, "device": {...}}.  Any failed check
@@ -87,6 +105,10 @@ PSFNET_CKPT = os.path.join(ROOT, "ckpt", "rf50mm", "psfnet_480x640_ks11.msgpack"
 AIF_CKPT = os.path.join(ROOT, "ckpt", "dff_synth", "aifnet", "depth_net_best.msgpack")
 DFV_CKPT = os.path.join(ROOT, "ckpt", "dff_synth", "dfvnet", "depth_net_best.msgpack")
 RENDER_GOLDENS = os.path.join(ROOT, "tests", "goldens", "render_goldens.npz")
+OPTICS_GOLDENS = os.path.join(ROOT, "tests", "goldens", "optics_goldens.npz")
+LENS_FILES = {"rf50mm": os.path.join(ROOT, "lenses", "rf50mm.json"),
+              "50mm_f2_8": os.path.join(ROOT, "lenses", "50mm_f2.8.json")}
+PSF_GATE = os.path.join(ROOT, "PSF_GATE.json")
 
 BS, N_STACK, H, W, KS = 2, 8, 480, 640, 11   # configs/aber_aware_dff_{synth,dfv}.yml
 LR, EPOCHS = 1e-4, 20
@@ -115,6 +137,16 @@ LOOP_TOL = 1e-6             # frame loop vs stack: tests/test_pallas.py:247
 ROWSUM_TOL = 1e-5           # PSF rows sum to 1: tests/test_pallas.py:22
 GOLDEN_TOL = 2e-4           # tests/test_psfnet_render.py:143
 BUDGET_S = 1000.0           # stop before the 1200 s the run may take
+# The tracer against optics_goldens.npz (tests/test_optics_core.py:100-148):
+# derived values and pupils, ray endpoints on the rays valid in both (the
+# masks agree on > 99.9%), and the refocus within its Monte-Carlo noise.
+DERIVED_TOL = {"foclen": 1e-3, "fnum": 1e-3, "hfov": 1e-4, "d_sensor": 1e-9,
+               "pupil": 1e-3}
+TRACE_TOL = {"o": 1e-3, "d": 2e-5, "obliq": 1e-4}
+REFOCUS_TOL = {"d_sensor": 2e-2, "hfov": 1e-3, "fnum": 2e-2}
+PSF_CARD_VS_CPU = 1e-4      # psf_impl, same draws: the card against the CPU
+FIT_ITERS, FIT_EVERY = 100, 50
+GATE_TOL = {"avg_l1": 0.05, "avg_l2": 0.10}   # relative to PSF_GATE.json
 F32_FLOPS = 67e12           # H100 SXM, f32 on the CUDA cores, 700 W
 BF16_FLOPS = 989e12         # H100 SXM, bf16 on the tensor cores, dense
 HBM_BYTES_S = 3.35e12
@@ -426,6 +458,224 @@ def run_entry(torch, np, gen, device, make_scenes, trainer, fused_render,
         return fields
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_optics(torch, np, device):
+    """The optics phase: both lens files on the card against the goldens,
+    and psf_impl on the card against the CPU.  Returns the phase's fields;
+    raises SmokeError on a failed check."""
+    from aadff_tpu_torch.constants import WAVE_RGB  # noqa: PLC0415
+    from aadff_tpu_torch.optics import Lens, make_rays  # noqa: PLC0415
+    from aadff_tpu_torch.optics.psf import (draw_psf, lens_scalars,  # noqa: PLC0415
+                                            psf_impl)
+
+    g = np.load(OPTICS_GOLDENS)
+    fields = {"tol": {"derived": DERIVED_TOL, "trace": TRACE_TOL,
+                      "refocus": REFOCUS_TOL, "psf_card_vs_cpu": PSF_CARD_VS_CPU,
+                      "psf_sum": ROWSUM_TOL}}
+    for key, path in LENS_FILES.items():
+        lens = Lens(path, sensor_res=(H, W), device=device)
+        foclen, fnum, hfov, d_sensor = g[f"{key}_derived"]
+        errs = {"foclen": abs(lens.foclen - foclen), "fnum": abs(lens.fnum - fnum),
+                "hfov": abs(lens.hfov - hfov),
+                "d_sensor": abs(lens.d_sensor - d_sensor),
+                "pupil": max(abs(a - b) for a, b in zip(lens.entrance_pupil(),
+                                                        g[f"{key}_pupil"]))}
+        trace = {}
+        for wvln in WAVE_RGB:
+            ray = make_rays(g[f"{key}_ray_o_in"], g[f"{key}_ray_d_in"], device=device)
+            out = lens.trace2sensor(ray, wvln=wvln)
+            w = str(wvln).replace(".", "")
+            ra, ra_ref = out.ra.cpu().numpy(), g[f"{key}_w{w}_ra"]
+            m = (ra > 0) & (ra_ref > 0)
+            trace[w] = {"mask_agree": float((ra == ra_ref).mean()),
+                        "o": float(np.abs(out.o.cpu().numpy()[m] - g[f"{key}_w{w}_o"][m]).max()),
+                        "d": float(np.abs(out.d.cpu().numpy()[m] - g[f"{key}_w{w}_d"][m]).max()),
+                        "obliq": float(np.abs(out.obliq.cpu().numpy()[m]
+                                              - g[f"{key}_w{w}_obliq"][m]).max())}
+        refocus = {}
+        for depth in (500, 2400, 20000):
+            lens = Lens(path, sensor_res=(H, W), device=device)
+            lens.refocus(-float(depth))
+            d_ref, hfov_ref, fnum_ref = g[f"{key}_refocus_{depth}"]
+            refocus[depth] = {"d_sensor": abs(lens.d_sensor - d_ref),
+                              "hfov": abs(lens.hfov - hfov_ref),
+                              "fnum": abs(lens.fnum - fnum_ref)}
+        fields[key] = {"derived_err": errs, "trace_err": trace,
+                       "refocus_err": refocus}
+        for name, err in errs.items():
+            check(err < DERIVED_TOL[name], f"{key} {name}: {err:.3g}")
+        for w, rec in trace.items():
+            check(rec["mask_agree"] > 0.999, f"{key} w{w}: masks {rec['mask_agree']}")
+            for name, tol in TRACE_TOL.items():
+                check(rec[name] <= tol, f"{key} w{w} {name}: {rec[name]:.3g}")
+        for depth, rec in refocus.items():
+            for name, tol in REFOCUS_TOL.items():
+                check(rec[name] < tol, f"{key} refocus {depth} {name}: {rec[name]:.3g}")
+
+    # psf_impl from the same draws and lens scalars, on the card and the CPU
+    on_card = Lens(LENS_FILES["rf50mm"], sensor_res=(H, W), device=device)
+    on_cpu = Lens(LENS_FILES["rf50mm"], sensor_res=(H, W), device="cpu")
+    on_cpu.refocus(-2400.0)
+    scalars = lens_scalars(on_cpu)
+    draws = draw_psf(4096, torch.Generator().manual_seed(0), "cpu")
+    pts = torch.tensor([[0.0, 0.0, -2400.0], [0.5, -0.5, -5000.0],
+                        [-0.9, 0.3, -800.0], [0.98, 0.98, -20000.0],
+                        [-0.3, -0.7, -1200.0], [0.1, 0.9, -300.0]])
+    rng = tuple(range(len(on_card.metas)))
+    card = psf_impl(on_card.params, on_card.metas, pts.to(device),
+                    type(draws)(*(t.to(device) for t in draws)), KS, 0.589, True,
+                    rng, *scalars)
+    cpu = psf_impl(on_cpu.params, on_cpu.metas, pts, draws, KS, 0.589, True, rng,
+                   *scalars)
+    fields["psf_card_vs_cpu_max_abs"] = (card.cpu() - cpu).abs().max().item()
+    fields["psf_sum_err"] = (card.sum((-1, -2)) - 1).abs().max().item()
+    check(fields["psf_card_vs_cpu_max_abs"] <= PSF_CARD_VS_CPU,
+          f"psf_impl card vs CPU {fields['psf_card_vs_cpu_max_abs']:.3g}")
+    check(fields["psf_sum_err"] <= ROWSUM_TOL, f"PSF sums {fields['psf_sum_err']:.3g}")
+    return fields
+
+
+def profile_fit_step(torch, net, opt, foc_z, state):
+    """One fit iteration under torch.profiler: (device events, kernels
+    among them (the rest are copies and memsets), device ms busy, wall
+    ms)."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        net.fit_step(opt, foc_z, state, 128, 4096)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:  # the union of the kernels' intervals
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in kernels)
+    return len(kernels), n_kernels, busy / 1e3, wall_ms
+
+
+def run_psf_fit(torch, np, gen, device, make_scenes, fused_render, mlp_psf):
+    """The psf_fit phase: the twin of scripts/1_fit_psfnet.py in this
+    process, cut to FIT_ITERS iterations, then one B1 f32 stack with the
+    fitted weights.  Returns the phase's fields and the B1 launches."""
+    import shutil  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    from aadff_tpu_torch.dff.focus import select_focus_dist  # noqa: PLC0415
+    from aadff_tpu_torch.psfnet.psfnet import PSFNet  # noqa: PLC0415
+    from aadff_tpu_torch.scripts import fit_psfnet  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="aadff_fit_")
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        net, losses, (l1, l2) = fit_psfnet.main([
+            "--iters", str(FIT_ITERS), "--evaluate-every", str(FIT_EVERY),
+            "--result-dir", tmp, "--device", str(device)])
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t
+        files = sorted(os.listdir(tmp))
+        saved = PSFNet(kernel_size=KS, sensor_res=(H, W), device=device)
+        saved.load_net(os.path.join(tmp, "PSFNet_mlp.msgpack"))
+        reload_equal = all(torch.equal(a, b) for a, b in zip(
+            saved.model.parameters(), net.model.parameters()))
+
+        # one focal stack through B1 f32 with the fitted weights
+        aif, depth = make_scenes(BS, H, W, gen, device)
+        focus = select_focus_dist(depth, N_STACK, mode="linear")
+        depth_mm, focus_mm = depth * -1e3, focus * -1e3
+        torch.cuda.synchronize()
+        reset_counts(fused_render, mlp_psf)
+        stack = net.render_stack(aif, depth_mm, focus_mm)
+        torch.cuda.synchronize()
+        launches = dict(fused_render.variant_launches)
+        ref = fused_render.fused_psf_render_reference(
+            net.model, aif, depth_mm[:, 0].contiguous(), focus_mm.contiguous(),
+            KS, net.d_min, net.d_max)
+        render_err = (stack - ref).abs().max().item()
+        del stack, ref
+
+        # the fit iteration on its own: CUDA events, then one under the profiler
+        opt = net.fit_optimizer(1e-4, FIT_ITERS)
+        states = net.focus_states()
+        foc_z = torch.tensor(net.foc_z_arr.astype(np.float32), device=device)
+        net.fit_step(opt, foc_z[0], states[0], 128, 4096)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iter_ms = time_ms(torch, lambda: net.fit_step(opt, foc_z[5], states[5],
+                                                      128, 4096), 10)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        n_events, n_kernels, busy_ms, wall_ms = profile_fit_step(
+            torch, net, opt, foc_z[9], states[9])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    fields = {"config": {"lens": "lenses/rf50mm.json", "res": [H, W], "ks": KS,
+                         "bs": fit_psfnet.BS, "spp": fit_psfnet.SPP,
+                         "lr": fit_psfnet.LR, "iters": FIT_ITERS,
+                         "warm_start": os.path.relpath(fit_psfnet.CKPT, ROOT)},
+              "twin_s": twin_s, "files": files, "n_losses": len(losses),
+              "loss_first10_mean": first, "loss_last10_mean": last,
+              "gate_n_z40": {"avg_l1": l1, "avg_l2": l2},
+              "reload_equal": reload_equal,
+              "ms_per_iter": iter_ms, "kernels_per_iter": n_kernels,
+              "device_events_per_iter": n_events,
+              "idle_share": 1.0 - busy_ms / iter_ms,
+              "profiled_iter": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                                "idle_share": 1.0 - busy_ms / wall_ms},
+              "peak_gib": peak_gib,
+              "render": {"launches": launches, "max_abs_err": render_err,
+                         "tol": KERNEL_TOL}}
+    check(len(losses) == FIT_ITERS + 1 and bool(np.isfinite(losses).all()),
+          f"fit losses: {len(losses)}, finite {np.isfinite(losses).all()}")
+    check(last <= 1.5 * first, f"fit: last 10 {last:.3g} vs first 10 {first:.3g}")
+    check(reload_equal, "the saved weights do not reload equal")
+    check("lens.json" in files and "PSFNet_mlp.msgpack" in files,
+          f"fit files {files}")
+    check(np.isfinite(l1) and np.isfinite(l2), f"fit gate {l1}, {l2}")
+    check(launches == {"stack/f32/full": 1} and mlp_psf.launches == 0,
+          f"fitted render launches {launches}")
+    check(render_err <= KERNEL_TOL, f"fitted render vs plain {render_err:.3g}")
+    check(n_kernels > 0 and busy_ms > 0, "the profile holds no device time")
+    return fields, launches.get("stack/f32/full", 0)
+
+
+def run_psf_gate(torch, device):
+    """The psf_gate phase: the twin of scripts/psf_gate.py on the converted
+    checkpoint, held to PSF_GATE.json."""
+    import tempfile  # noqa: PLC0415
+
+    from aadff_tpu_torch.scripts import psf_gate  # noqa: PLC0415
+
+    with open(PSF_GATE) as f:
+        committed = json.load(f)["records"]
+    ref = next(r for r in committed
+               if r["ckpt"] == "ckpt/rf50mm/psfnet_480x640_ks11.msgpack"
+               and r["lattice"] == "20 foc x 10 z x 7x10 field points")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gate.json")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = psf_gate.main([PSFNET_CKPT, "--out", out, "--device", str(device)])
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        with open(out) as f:
+            written = json.load(f)["records"]
+    rel = {k: abs(rec[k] - ref[k]) / ref[k] for k in GATE_TOL}
+    fields = {"record": rec, "reference": {k: ref[k] for k in GATE_TOL},
+              "rel_err": rel, "tol": GATE_TOL, "peak_gib": peak_gib}
+    check(written == [rec], f"gate file {written}")
+    for k, tol in GATE_TOL.items():
+        check(rel[k] <= tol, f"gate {k} {rec[k]:.4g} vs {ref[k]:.4g} ({rel[k]:.3g})")
+    return fields
 
 
 def main():
@@ -933,6 +1183,16 @@ def main():
     entry_launches = entry["launches"]["stack/f32/full"]
     phase("entry", t0, **entry)
 
+    # ---- the lens ray tracer and PSFNet fitting --------------------------
+    t0 = time.perf_counter()
+    phase("optics", t0, **run_optics(torch, np, device))
+    t0 = time.perf_counter()
+    fit, fit_launches = run_psf_fit(torch, np, gen, device, make_scenes,
+                                    fused_render, mlp_psf)
+    phase("psf_fit", t0, **fit)
+    t0 = time.perf_counter()
+    phase("psf_gate", t0, **run_psf_gate(torch, device))
+
     render_src = "aadff_tpu_torch/csrc/fused_psf_render.cu"
     mlp_src = "aadff_tpu_torch/csrc/mlp_psf.cu"
     b1 = "aadff_tpu/ops/pallas_render.py:336"
@@ -958,7 +1218,7 @@ def main():
         entry("fused_psf_render", render_src, b1, main_launches, (err_stack,),
               KERNEL_TOL, kernel_ms, plain_ms, (bound_ms, bound_by),
               variant="stack/f32/full", dfv_launches=dfv_launches,
-              entry_launches=entry_launches),
+              entry_launches=entry_launches, psf_fit_launches=fit_launches),
         entry("fused_psf_render_bf16", render_src, b1,
               bf16_launches["stack/bf16/full"], b1_16["stack_2x8x3x480x640"],
               bf16_tol, b1_16_ms, b1_16_plain_ms, (b1_16_bound, b1_16_bound_by),

@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX, Flax, msgpack, YAML,
-OpenCV or PIL, and nothing of the JAX package, so that it runs where those
-are not installed."""
+OpenCV, PIL or matplotlib, and nothing of the JAX package, so that it runs
+where those are not installed."""
 import ast
 import os
 import subprocess
@@ -9,7 +9,8 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "cv2", "PIL", "aadff_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "cv2", "PIL", "matplotlib",
+             "aadff_tpu")
 PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "aadff_tpu_torch"))
@@ -20,11 +21,13 @@ def test_importing_the_port_loads_no_jax():
     """Every module of the port, the entry script included."""
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in PORT_FILES if p.startswith("aadff_tpu_torch")]
-    assert "aadff_tpu_torch.scripts.aber_aware_dff_synth" in modules
+    for twin in ("aber_aware_dff_synth", "fit_psfnet", "psf_gate"):
+        assert f"aadff_tpu_torch.scripts.{twin}" in modules
     code = (f"import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'flax', 'msgpack', 'yaml', 'cv2', 'PIL', 'aadff_tpu.'))]; "
+            "('jax.', 'flax', 'msgpack', 'yaml', 'cv2', 'PIL', 'matplotlib', "
+            "'aadff_tpu.'))]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
