@@ -2,26 +2,29 @@
 of `aadff_tpu/dff/factory.py`)."""
 from __future__ import annotations
 
-from ..psfnet.psfnet import PSFNet
+from ..psfnet.psfnet import PSFNet, ThinLens
 from .dataset import FlyingThings3D, Matterport3D, Middlebury, RealWorld
 
 
 def get_lens(args: dict, device="cuda"):
-    """(train lens, test lens) of a run config: each a `PSFNet` at
-    args["res"] and args["ks"] on `device`, built on its section's lens
-    JSON (the port's ray-traced `Lens`, `PSFNet.lens`; the file's path is
-    `PSFNet.lens_path`), with the weights of the section's `psfnet_path`.
-    `lens: thinlens` raises until the port has ThinLens's renderer
-    (ROADMAP A5).
+    """(train lens, test lens) of a run config, at args["res"] and
+    args["ks"] on `device`.  A section with `lens: thinlens` gets the ideal
+    `ThinLens` of its `foc_len`, `fnum` and `sensor_size` (numbers or
+    strings); any other `lens` is a lens JSON, and the section gets a
+    `PSFNet` built on it (the port's ray-traced `Lens`, `PSFNet.lens`; the
+    file's path is `PSFNet.lens_path`) with the weights of its
+    `psfnet_path`.
     """
     sensor_res = tuple(args["res"])
 
     def build(section):
         name = args[section]["lens"]
         if name == "thinlens":
-            raise NotImplementedError(
-                f"{section}.lens 'thinlens': the port has no ThinLens yet "
-                f"(ROADMAP A5)")
+            sec = args[section]
+            return ThinLens(foc_len=float(sec["foc_len"]), fnum=float(sec["fnum"]),
+                            kernel_size=args["ks"],
+                            sensor_size=[float(i) for i in sec["sensor_size"]],
+                            sensor_res=sensor_res, device=device)
         lens = PSFNet(kernel_size=args["ks"], sensor_res=sensor_res,
                       device=device, filename=name)
         lens.load_net(args[section]["psfnet_path"])

@@ -6,9 +6,14 @@ Flax names submodules by type and creation order (`aadff_tpu/models/dfv/`):
     the order upconv6, iconv5, upconv5, iconv4, upconv4, iconv3, proj6..3;
   * BasicBlock: TorchConv_0/BatchNorm_0 (conv1), _1 (conv2), _2 (the
     projection of the shortcut);
-  * DecoderBlock: SepConv3dBlock_i, then SepConv3d_0 and _1 (classify, the
-    cost computed before the upsample) and SepConv3d_2 (the upsample conv);
-  * SepConv3dBlock: SepConv3d_0 (conv1), ProjFeat3d_0, SepConv3d_1 (conv2).
+  * DecoderBlock: SepConv3dBlock_i, then with pool=True SepConv3d_0..3 (the
+    pool convs), then two SepConv3d (classify, the cost computed before the
+    upsample) and one more (the upsample conv): _0, _1, _2 without the
+    pool and _4, _5, _6 with it;
+  * SepConv3dBlock: SepConv3d_0 (conv1), ProjFeat3d_0 (Conv_0 and
+    BatchNorm_0, where the block changes width: the first block of
+    decoder4 at levels 3 and 4 and of decoder5 at level 4), SepConv3d_1
+    (conv2).
 Conv kernels [kh, kw, in, out] -> torch [out, in, kh, kw] and
 [kd, kh, kw, in, out] -> [out, in, kd, kh, kw]; BatchNorm scale/bias/mean/
 var -> weight/bias/running_mean/running_var.
@@ -22,15 +27,22 @@ import numpy as np
 import torch
 
 from ...utils import flax_msgpack
+from .dffnet import DECODERS
 
 _PERM = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _FEAT_CONVS = ("upconv6", "iconv5", "upconv5", "iconv4", "upconv4", "iconv3",
                "proj6", "proj5", "proj4", "proj3")
 
 
-def dfvnet_key_map() -> dict[str, tuple[str, tuple[str, ...]]]:
+def dfvnet_level(params: dict) -> int:
+    """The level of a Flax DFVNet from its params: the coarsest decoder it
+    has (decoder3 alone is level 1, decoder6 level 4)."""
+    return max(n for n in (1, 2, 3, 4) if DECODERS[n][-1][0] in params)
+
+
+def dfvnet_key_map(level: int = 2) -> dict[str, tuple[str, tuple[str, ...]]]:
     """torch state-dict key -> (Flax collection, path of the Flax leaf) for
-    DFVNet at level 2."""
+    DFVNet at `level`."""
     keys: dict[str, tuple[str, tuple[str, ...]]] = {}
 
     def conv(name, path, bias=False):
@@ -72,25 +84,34 @@ def dfvnet_key_map() -> dict[str, tuple[str, tuple[str, ...]]]:
         if not bias:
             bn(f"{name}.bn", (*path, "BatchNorm_0"))
 
-    # At level 2 every decoder block keeps its width and stride, so none has
-    # a ProjFeat3d shortcut.
-    for name, up in (("decoder3", False), ("decoder4", True)):
+    # Every decoder block has stride 1, so a block has a ProjFeat3d shortcut
+    # exactly where it changes width: the first block, fed cin channels.
+    for name, cin, channels, up, pool in DECODERS[level]:
         for i in range(2):
             block, path = f"{name}.convs.{i}", (name, f"SepConv3dBlock_{i}")
             sep_conv(f"{block}.conv1", (*path, "SepConv3d_0"))
+            if i == 0 and cin != channels:
+                proj = (*path, "ProjFeat3d_0")
+                conv(f"{block}.downsample.conv", (*proj, "Conv_0"))
+                bn(f"{block}.downsample.bn", (*proj, "BatchNorm_0"))
             sep_conv(f"{block}.conv2", (*path, "SepConv3d_1"))
-        sep_conv(f"{name}.classify.0", (name, "SepConv3d_0"))
-        sep_conv(f"{name}.classify.2", (name, "SepConv3d_1"), bias=True)
+        k = 4 if pool else 0
+        for j in range(k):
+            sep_conv(f"{name}.pool_convs.{j}", (name, f"SepConv3d_{j}"))
+        sep_conv(f"{name}.classify.0", (name, f"SepConv3d_{k}"))
+        sep_conv(f"{name}.classify.2", (name, f"SepConv3d_{k + 1}"), bias=True)
         if up:
-            sep_conv(f"{name}.up_conv", (name, "SepConv3d_2"))
+            sep_conv(f"{name}.up_conv", (name, f"SepConv3d_{k + 2}"))
     return keys
 
 
 def dfvnet_state_from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """{'params': ..., 'batch_stats': ...} of the Flax DFVNet(level=2) -> a
-    state dict for `aadff_tpu_torch.models.dfv.dffnet.DFVNet`."""
+    """{'params': ..., 'batch_stats': ...} of a Flax DFVNet at any level
+    (`dfvnet_level`) -> a state dict for
+    `aadff_tpu_torch.models.dfv.dffnet.DFVNet` at that level."""
     out = {}
-    for key, (collection, path) in dfvnet_key_map().items():
+    level = dfvnet_level(variables["params"])
+    for key, (collection, path) in dfvnet_key_map(level).items():
         leaf = variables[collection]
         for part in path:
             leaf = leaf[part]

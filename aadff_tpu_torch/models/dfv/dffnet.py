@@ -11,16 +11,29 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..layers import resize_bilinear
+from ..layers import resize_bilinear, resize_trilinear
 from .feat import FeatExactor
 from .submodule import DecoderBlock, DisparityRegression
 
+# The decoders of each level (`dffnet.py:23-41`), finest first:
+# (name, input channels, channels, up, pool).  A decoder's first block sees
+# the coarser decoder's upsampled features (channels // 2) beside the
+# feature volume of its scale (vol1..vol4: 16, 32, 64, 128 channels).
+DECODERS = {
+    1: (("decoder3", 16, 16, False, False),),
+    2: (("decoder3", 32, 32, False, False), ("decoder4", 32, 32, True, False)),
+    3: (("decoder3", 32, 32, False, False), ("decoder4", 64, 32, True, False),
+        ("decoder5", 64, 64, True, True)),
+    4: (("decoder3", 32, 32, False, False), ("decoder4", 64, 32, True, False),
+        ("decoder5", 128, 64, True, True), ("decoder6", 128, 128, True, True)),
+}
+
 
 class DFVNet(nn.Module):
-    """`dffnet.py:DFVNet` (use_diff 0: Ours-FV, 1: Ours-DFV; `clean` is
-    unused, as there) at level 2, the level of the paper's configuration;
-    levels 1, 3 and 4 are not ported yet (3 and 4 need
-    DecoderBlock(pool=True)).
+    """`dffnet.py:DFVNet` at levels 1 to 4 (use_diff 0: Ours-FV, 1:
+    Ours-DFV; `clean` is unused, as there).  Level L decodes the L finest
+    feature volumes, coarsest first; levels 3 and 4 pool in their coarse
+    decoders (DecoderBlock(pool=True)).
 
     Train mode returns (stacked, stds): the depth and std [B, 1, H, W] of
     each level, finest first.  Eval mode returns (pred [B, 1, H, W],
@@ -29,14 +42,15 @@ class DFVNet(nn.Module):
     def __init__(self, clean: bool = False, level: int = 2,
                  use_diff: int = 1):
         super().__init__()
-        if level != 2:
-            raise NotImplementedError(f"DFVNet level {level} is not ported yet")
+        if level not in DECODERS:
+            raise ValueError(f"level must be 1 to 4, got {level}")
         if use_diff not in (0, 1):
             raise ValueError(f"use_diff must be 0 or 1, got {use_diff}")
+        self.level = level
         self.use_diff = use_diff
         self.feature_extraction = FeatExactor()
-        self.decoder3 = DecoderBlock(32, 2, 32)
-        self.decoder4 = DecoderBlock(32, 2, 32, up=True)
+        for name, cin, channels, up, pool in DECODERS[level]:
+            setattr(self, name, DecoderBlock(cin, 2, channels, up=up, pool=pool))
         self.disp_reg = DisparityRegression(1)
 
     @staticmethod
@@ -56,18 +70,32 @@ class DFVNet(nn.Module):
             vol = f.reshape(B, S, c, h, w).transpose(1, 2)
             return self._diff_volume(vol) if self.use_diff == 1 else vol
 
-        _, _, vol2, vol1 = (to_vol(f) for f in feats)
-        feat4_2x, cost4 = self.decoder4(vol2)
-        _, cost3 = self.decoder3(torch.cat([feat4_2x, vol1], 1))
+        vol4, vol3, vol2, vol1 = (to_vol(f) for f in feats)
+        # decoders 6, 5, 4 (those of the level), coarsest first, each on its
+        # scale's volume beside the upsampled features of the one before
+        costs, feat = {}, None
+        for n, vol in ((6, vol4), (5, vol3), (4, vol2))[4 - self.level:]:
+            x = vol if feat is None else torch.cat([feat, vol], 1)
+            feat, costs[n] = getattr(self, f"decoder{n}")(x)
+        _, cost3 = self.decoder3(vol1 if feat is None
+                                 else torch.cat([feat, vol1], 1))
 
         cost3 = resize_bilinear(cost3, (H, W))
         prob3 = torch.softmax(cost3, dim=1)
         pred3, std3 = self.disp_reg(prob3, focal_dist, uncertainty=True)
         if not self.training:
             return pred3, std3[:, 0], prob3
-        prob4 = torch.softmax(resize_bilinear(cost4, (H, W)), dim=1)
-        pred4, std4 = self.disp_reg(prob4, focal_dist, uncertainty=True)
-        return [pred3, pred4], [std3, std4]
+        stacked, stds = [pred3], [std3]
+        for n in sorted(costs):
+            if n == 4:
+                cost = resize_bilinear(costs[n], (H, W))
+            else:  # `dffnet.py:106-119`: trilinear over (S, H, W)
+                cost = resize_trilinear(costs[n][:, None], (S, H, W))[:, 0]
+            pred, std = self.disp_reg(torch.softmax(cost, dim=1), focal_dist,
+                                      uncertainty=True)
+            stacked.append(pred)
+            stds.append(std)
+        return stacked, stds
 
 
 def dfv_loss(stacked, stds, gt_depth, mask,

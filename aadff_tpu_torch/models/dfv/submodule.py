@@ -3,7 +3,7 @@
 [B, C, S, h, w] with S the focal stack."""
 from __future__ import annotations
 
-import torch
+import numpy as np
 import torch.nn.functional as F
 from torch import nn
 
@@ -89,21 +89,27 @@ class DecoderBlock(nn.Module):
     (features, cost [B, S, h, w]).  The cost is computed before the
     upsample in train and eval mode alike, as the JAX package does
     (PARITY.md: the reference's eval path for up-blocks returns a cost that
-    is never consumed)."""
+    is never consumed).
+
+    With `pool` (DFVNet levels 3 and 4), the features pass a pyramid of
+    four average pools before the cost: windows of (D, H, W) // p for the
+    sizes p of `np.linspace(1, min(D, H, W) // 2, 4, dtype=int)`, each
+    through a 1x1x1 SepConv3d and trilinearly upsampled back, summed at
+    0.25 each onto the features, halved and rectified
+    (`submodule.py:102-117`)."""
 
     def __init__(self, cin: int, nconvs: int, channels: int,
                  stride=(1, 1, 1), up: bool = False, nstride: int = 1,
                  pool: bool = False):
         super().__init__()
-        if pool:
-            raise NotImplementedError(
-                "DecoderBlock(pool=True), used by DFVNet levels 3 and 4, is "
-                "not ported yet")
         strides = ([_triple(stride)] * nstride
                    + [(1, 1, 1)] * (nconvs - nstride))
         self.convs = nn.ModuleList(
             SepConv3dBlock(cin if i == 0 else channels, channels, strides[i])
             for i in range(nconvs))
+        self.pool_convs = (nn.ModuleList(
+            SepConv3d(channels, channels, 1, (1, 1, 1), 0) for _ in range(4))
+            if pool else None)
         self.classify = nn.Sequential(
             SepConv3d(channels, channels, 3, (1, 1, 1), 1), nn.ReLU(),
             SepConv3d(channels, 1, 3, (1, 1, 1), 1, bias=True))
@@ -113,6 +119,16 @@ class DecoderBlock(nn.Module):
     def forward(self, fvl):
         for block in self.convs:
             fvl = block(fvl)
+        if self.pool_convs is not None:
+            D, H, W = fvl.shape[2:]
+            pooled = fvl
+            sizes = np.linspace(1, min(D, H, W) // 2, 4, dtype=int)
+            for conv, p in zip(self.pool_convs, sizes):
+                # Python's int() truncates, as the JAX package's casts do
+                ksz = (int(D / p), int(H / p), int(W / p))
+                out = conv(F.avg_pool3d(fvl, ksz, ksz))
+                pooled = pooled + 0.25 * resize_trilinear(out, (D, H, W))
+            fvl = F.relu(pooled / 2.0)
         costl = self.classify(fvl)[:, 0]
         if self.up_conv is not None:
             D, H, W = fvl.shape[2:]

@@ -48,9 +48,17 @@ class BatchNorm(nn.Module):
                     (1 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_(
                     (1 - self.momentum) * var)
-            # normalises with the biased batch variance, as Flax does
-            y = F.batch_norm(x, None, None, self.weight, self.bias,
-                             training=True, momentum=0.0, eps=self.eps)
+            if x.numel() == x.shape[1]:
+                # one value per channel (a batch of 1 through DecoderBlock's
+                # global pool), which F.batch_norm refuses: Flax normalises
+                # it to 0, so the result is the bias
+                shape = (1, -1) + (1,) * (x.dim() - 2)
+                y = ((x - x) * self.weight.reshape(shape)
+                     + self.bias.reshape(shape))
+            else:
+                # normalises with the biased batch variance, as Flax does
+                y = F.batch_norm(x, None, None, self.weight, self.bias,
+                                 training=True, momentum=0.0, eps=self.eps)
         else:
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, training=False,

@@ -48,7 +48,7 @@ import torch
 from ..constants import DEFAULT_WAVE, DMAX, DMIN
 from ..ops.fused_render import fused_psf_render, jax_linspace, psf_field
 from ..ops.mlp_psf import mlp_psf
-from ..ops.render import local_psf_render
+from ..ops.render import local_psf_render, render_taps
 from ..optics.lens import Lens
 from ..optics.psf import (PsfDraws, draw_psf, full_f32, lens_psf, lens_scalars,
                           psf_impl)
@@ -338,7 +338,8 @@ class PSFNet:
         ks = self.kernel_size
         if thinlens is None:
             thinlens = ThinLens(self.lens.foclen, self.lens.fnum, ks,
-                                self.lens.sensor_size, self.lens.sensor_res)
+                                self.lens.sensor_size, self.lens.sensor_res,
+                                self.device)
         g = jax_linspace(-ks / 2 + 0.5, ks / 2 - 0.5, ks, self.device)
         xg, yg = torch.meshgrid(g, g, indexing="xy")
         radius = thinlens.coc(depth, foc_dist).to(self.device) / 2
@@ -358,7 +359,7 @@ class PSFNet:
         test_dists = [-1200.0, -1500.0, -2000.0]
         lens = self._need_lens()
         thinlens = ThinLens(lens.foclen, lens.fnum, ks, lens.sensor_size,
-                            lens.sensor_res)
+                            lens.sensor_res, self.device)
         for foc_dist in test_foc_dists:
             foc_z = float(np.clip((foc_dist - self.d_min) / (self.d_max - self.d_min), 0, 1))
             lens.refocus(foc_dist)
@@ -446,10 +447,15 @@ class PSFNet:
 
 
 class ThinLens:
-    """Thin-lens circle of confusion (`psfnet.py:728-754`): what
-    `thin_lens_psf` needs of JAX's `ThinLens`."""
+    """The thin-lens baseline (`psfnet.py:728-809`): an ideal lens whose
+    defocus is a Gaussian of the circle of confusion, masked to the CoC
+    disc and L1-normalised per pixel.  `render` and `render_stack` keep
+    PSFNet's contract; the per-pixel convolution is the tap loop
+    (`ops/render.py`), as the JAX package renders it in plain XLA with no
+    Pallas kernel."""
 
-    def __init__(self, foc_len, fnum, kernel_size, sensor_size, sensor_res):
+    def __init__(self, foc_len, fnum, kernel_size, sensor_size, sensor_res,
+                 device="cuda"):
         self.d_max = DMAX
         self.d_min = DMIN
         self.kernel_size = kernel_size
@@ -458,6 +464,7 @@ class ThinLens:
         self.sensor_size = sensor_size
         self.sensor_res = sensor_res
         self.ps = self.sensor_size[0] / self.sensor_res[0]
+        self.device = torch.device(device)
 
     def coc(self, depth, foc_dist):
         """Circle of confusion in pixels."""
@@ -473,3 +480,40 @@ class ThinLens:
             * self.foc_len / (foc_dist - self.foc_len)
         )
         return torch.clamp(coc / self.ps, min=0.1)
+
+    def psf_taps(self, depth, foc_dist) -> torch.Tensor:
+        """depth [N, 1, H, W] mm, foc_dist [N] mm -> the per-pixel PSFs
+        [N, ks*ks, H, W], tap-major (`psfnet.py:766-777`)."""
+        ks = self.kernel_size
+        N, _, H, W = depth.shape
+        fd = foc_dist.reshape(N, 1, 1, 1).expand(N, 1, H, W)
+        yg, xg = torch.meshgrid(
+            jax_linspace(ks / 2 - 0.5, -ks / 2 + 0.5, ks, self.device),
+            jax_linspace(-ks / 2 + 0.5, ks / 2 - 0.5, ks, self.device),
+            indexing="ij")
+        r2 = (xg ** 2 + yg ** 2).reshape(1, ks * ks, 1, 1)
+        radius = self.coc(depth, fd) / 2  # [N, 1, H, W]
+        psf = torch.exp(-r2 / 2 / radius ** 2) / (2 * np.pi * radius ** 2)
+        psf = psf * (r2 < radius ** 2)
+        return psf / psf.sum(1, keepdim=True)
+
+    def render(self, img, depth, foc_dist) -> torch.Tensor:
+        """img [N, C, H, W] (or [C, H, W]); depth [N, 1, H, W] mm; foc_dist
+        [N] mm -> [N, C, H, W]."""
+        img = self._tensor(img)
+        if img.dim() == 3:
+            img = img[None]
+        depth = self._tensor(depth)
+        foc = self._tensor(foc_dist).reshape(-1)
+        return render_taps(img, self.psf_taps(depth, foc), self.kernel_size)
+
+    def render_stack(self, img, depth, focus_dists) -> torch.Tensor:
+        """img [B, C, H, W]; depth [B, 1, H, W] mm; focus_dists [B, S] mm ->
+        [B, S, C, H, W], one frame at a time as `lax.map` does."""
+        focus = self._tensor(focus_dists)
+        return torch.stack([self.render(img, depth, focus[:, s])
+                            for s in range(focus.shape[1])], dim=1)
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=self.device).contiguous()

@@ -50,7 +50,7 @@ from ..utils.logging import set_seed
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-class _StepTimer:
+class StepTimer:
     """Times each train call (render included) without waiting for the
     device: CUDA events on a GPU, the host clock on the CPU (where every op
     has finished when it returns)."""
@@ -84,6 +84,58 @@ class _StepTimer:
             calls = self.calls
         self.calls = []
         return [ms / k for ms, k in calls for _ in range(k)]
+
+
+def train_epoch(train_loader, device, n_stack, single_step, multi_step, k,
+                timer, skip):
+    """One pass over `train_loader`, the chunk loop's body that both twins
+    share.  A batch (aif, depth) for which skip(depth) holds is left out;
+    the others go to the device with linearly spaced focus distances and
+    train through single_step(aif, depth, focus) -> losses or, with k > 1,
+    in groups of k through multi_step(aif_k, depth_k, focus_k) -> losses
+    stacked to [k], whose losses are read only at the epoch's end (the
+    epoch's tail of < k batches goes one call a step, so that every loaded
+    batch trains and the step count follows the loader).  Each call is
+    timed by `timer`.  Returns (sum of the losses, steps, skipped)."""
+    epoch_loss, n_batches, n_skipped = 0.0, 0, 0
+    pending = []  # staged (aif, depth, focus) device batches of a K-step call
+    deferred_losses = []  # K-step losses, read at the epoch's end
+
+    def one(aif, depth, focus_dists):
+        t = timer.start()
+        losses = single_step(aif, depth, focus_dists)
+        timer.stop(t, 1)
+        return float(losses["total"]), int(losses["skipped_nonfinite"])
+
+    for aif, depth in train_loader:
+        if skip(depth):
+            continue
+        aif, depth = to_device(device, aif, depth)
+        focus_dists = select_focus_dist(depth, n_stack, mode="linear")
+        if k > 1:
+            pending.append((aif, depth, focus_dists))
+            if len(pending) < k:
+                continue
+            t = timer.start()
+            losses = multi_step(*(torch.stack(group) for group in zip(*pending)))
+            timer.stop(t, k)
+            pending = []
+            deferred_losses.append(losses)
+            n_batches += k
+        else:
+            loss, skipped = one(aif, depth, focus_dists)
+            epoch_loss += loss
+            n_skipped += skipped
+            n_batches += 1
+    for aif, depth, focus_dists in pending:
+        loss, skipped = one(aif, depth, focus_dists)
+        epoch_loss += loss
+        n_skipped += skipped
+        n_batches += 1
+    for losses in deferred_losses:
+        epoch_loss += float(losses["total"].sum())
+        n_skipped += int(losses["skipped_nonfinite"].sum())
+    return epoch_loss, n_batches, n_skipped
 
 
 def parse_args(argv=None):
@@ -165,8 +217,7 @@ def main(argv=None):
         print(f"resumed from epoch {start_epoch} (step {int(state.step)})")
 
     train_step = make_aif_train_step(task)
-    K = args_cli.k_per_dispatch
-    multi_step = (make_aif_train_multi_step(task, train_lens) if K > 1 else None)
+    multi_step = make_aif_train_multi_step(task, train_lens)
     eval_step = make_aif_eval_step()
 
     if args_cli.eval_only is not None:
@@ -187,47 +238,13 @@ def main(argv=None):
 
     end_epoch = min(start_epoch + args_cli.epochs_per_chunk,
                     args_cli.total_epochs)
-    timer = _StepTimer(device)
+    timer = StepTimer(device)
     for epoch in range(start_epoch, end_epoch):
         t0 = time.time()
-        epoch_loss, n_batches, n_skipped = 0.0, 0, 0
-        pending = []  # staged (aif, depth, focus) device batches of a K-step call
-        deferred_losses = []  # K-step losses, read at the epoch's end
-        for aif, depth in train_loader:
-            if nan_depth(depth):
-                continue
-            aif, depth = to_device(device, aif, depth)
-            focus_dists = select_focus_dist(depth, n_stack, mode="linear")
-            if multi_step is not None:
-                pending.append((aif, depth, focus_dists))
-                if len(pending) < K:
-                    continue
-                t = timer.start()
-                losses = multi_step(state, *(torch.stack(group)
-                                             for group in zip(*pending)))
-                timer.stop(t, K)
-                pending = []
-                deferred_losses.append(losses)
-                n_batches += K
-            else:
-                t = timer.start()
-                losses = single_step(aif, depth, focus_dists)
-                timer.stop(t, 1)
-                epoch_loss += float(losses["total"])
-                n_skipped += int(losses["skipped_nonfinite"])
-                n_batches += 1
-        # the epoch's tail (< K staged batches): one call per step, so that
-        # every loaded batch trains and the step count follows the loader
-        for aif, depth, focus_dists in pending:
-            t = timer.start()
-            losses = single_step(aif, depth, focus_dists)
-            timer.stop(t, 1)
-            epoch_loss += float(losses["total"])
-            n_skipped += int(losses["skipped_nonfinite"])
-            n_batches += 1
-        for losses in deferred_losses:
-            epoch_loss += float(losses["total"].sum())
-            n_skipped += int(losses["skipped_nonfinite"].sum())
+        epoch_loss, n_batches, n_skipped = train_epoch(
+            train_loader, device, n_stack, single_step,
+            lambda *group: multi_step(state, *group), args_cli.k_per_dispatch,
+            timer, nan_depth)
         mean_loss = epoch_loss / max(n_batches, 1)
         rec = {"epoch": epoch + 1, "loss": round(mean_loss, 5),
                "steps": n_batches, "skipped": n_skipped,

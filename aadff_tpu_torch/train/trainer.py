@@ -2,7 +2,8 @@
 `render_focal_stack` :170-189, the AiF train step `_aif_step_body` :68-112
 with its non-finite guard `guard_nonfinite` :57-65 (`guarded_step`, which
 the DFV step of `train/dff_dfv.py` shares), K steps per call
-`make_aif_train_multi_step` :123-156, `make_aif_eval_step` :159-167,
+`make_aif_train_multi_step` :123-156 (`make_multi_step`, shared with the
+DFV step), `make_aif_eval_step` :159-167,
 `validate` :195-268, the checkpoints :274-330 (which also read the JAX
 package's msgpack train states) and `OrbaxManager` :333 as
 `CheckpointManager`.
@@ -167,8 +168,16 @@ def make_aif_train_step(task: str, disp_w: float = 1.0, aif_w: float = 0.0,
 
 def make_aif_train_multi_step(task: str, lens, disp_w: float = 1.0,
                               aif_w: float = 0.0, smooth_w: float = 0.0):
+    """Returns multi_step(state, aif_k, depth_k, focus_k) -> losses: K AiF
+    train steps in one call (`make_multi_step`)."""
+    return make_multi_step(lens, make_aif_train_step(task, disp_w, aif_w,
+                                                     smooth_w))
+
+
+def make_multi_step(lens, step):
     """Returns multi_step(state, aif_k, depth_k, focus_k) -> losses: K train
-    steps in one call, each rendering its focal stack through `lens` first.
+    steps in one call, each rendering its focal stack through `lens` and
+    then calling step(state, stack, focus, depth, aif) -> losses.
 
     Takes K batches stacked on a leading axis: aif [K, B, C, H, W], depth
     [K, B, 1, H, W], focus_k [K, B, S].  The guard stays per step (a
@@ -176,7 +185,6 @@ def make_aif_train_multi_step(task: str, lens, disp_w: float = 1.0,
     stacked to [K] on the device: nothing inside the call waits for the
     host, so the caller may queue the next group before reading them.
     """
-    step = make_aif_train_step(task, disp_w, aif_w, smooth_w)
 
     def multi_step(state: TrainState, aif_k, depth_k, focus_k):
         per_step = []

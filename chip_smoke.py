@@ -10,7 +10,9 @@ ks 11, PSFNet `ckpt/rf50mm/psfnet_480x640_ks11.msgpack`, AiFDepthNet from
 `ckpt/dff_synth/aifnet/depth_net_best.msgpack`), the two-stage render route,
 and DFVNet training at the full configuration of
 `configs/aber_aware_dff_dfv.yml` (bs 2, n_stack 8, 480x640, ks 11, lr 1e-4,
-DFVNet level 2 from `ckpt/dff_synth/dfvnet/depth_net_best.msgpack`), on
+DFVNet level 2 from `ckpt/dff_synth/dfvnet/depth_net_best.msgpack`), DFVNet
+levels 1, 3 and 4, the twin of `scripts/4_aber_aware_dff_dfv_synth.py`, and
+the thin-lens baseline (`configs/aber_aware_dff_synth_thinlens.yml`), on
 scenes made from the seed:
 
   device      the card, its power limit, torch and CUDA versions
@@ -67,6 +69,26 @@ scenes made from the seed:
               and one B1 f32 launch per render (train steps and validation
               scenes).  Reports step_ms per step, validation forward ms,
               PNG read ms per scene and seconds per epoch
+  dfv_levels  DFVNet levels 1, 3 and 4 (use_diff 1; levels 3 and 4 with the
+              pooled decoders) from a seeded init: one train step and one
+              eval forward each at bs 2 x 8 x 480x640 through B1 (losses,
+              outputs and peak memory finite); each level's eval outputs
+              on the card and on the CPU from the same weights at
+              2 x 4 x 64x64, TF32 off, within 1e-4 of the largest value
+  dfv_entry   the twin of scripts/4_aber_aware_dff_dfv_synth.py in this
+              process on configs/aber_aware_dff_synth.yml and PNG scenes
+              (as entry): a chunk of 2 epochs x 2 steps, a resumed chunk
+              with --k-per-dispatch 2, --eval-only best.  Checks: the saved
+              state reloads bit for bit, finite losses with none skipped,
+              the 5 metrics finite, one B1 f32 launch per render and no
+              PSF-MLP launch.  Reports step_ms per step beside dfv_train's,
+              seconds per epoch and the validation forward ms
+  thinlens    ThinLens.render of the render golden (within 2e-4) and
+              render_stack against its frame loop (1e-6) on the card; the
+              ms and memory of one [2,8,3,480,640] thin-lens stack (the tap
+              loop); one chunk of each twin (AiF, DFV) under
+              configs/aber_aware_dff_synth_thinlens.yml: no B1 launch in
+              training, one per validation scene
   optics      the ray tracer on the card, both lens files
               (lenses/rf50mm.json, lenses/50mm_f2.8.json at 480x640):
               derived values, pupils, the trace of every wavelength and the
@@ -145,6 +167,10 @@ DERIVED_TOL = {"foclen": 1e-3, "fnum": 1e-3, "hfov": 1e-4, "d_sensor": 1e-9,
 TRACE_TOL = {"o": 1e-3, "d": 2e-5, "obliq": 1e-4}
 REFOCUS_TOL = {"d_sensor": 2e-2, "hfov": 1e-3, "fnum": 2e-2}
 PSF_CARD_VS_CPU = 1e-4      # psf_impl, same draws: the card against the CPU
+# DFVNet eval outputs, the card against the CPU from the same weights (TF32
+# off): 1e-4 of the largest value, the bound ROADMAP C holds them to
+# against JAX (cuDNN and oneDNN sum the convolutions in other orders).
+DFV_CARD_VS_CPU = 1e-4
 FIT_ITERS, FIT_EVERY = 100, 50
 GATE_TOL = {"avg_l1": 0.05, "avg_l2": 0.10}   # relative to PSF_GATE.json
 F32_FLOPS = 67e12           # H100 SXM, f32 on the CUDA cores, 700 W
@@ -327,6 +353,40 @@ def write_scene_dirs(root, aif, depth):
     return root
 
 
+def write_run_config(tmp, name, make_scenes, gen, device):
+    """configs/<name> with its two SynthMiddlebury paths pointing at
+    ENTRY_TRAIN + ENTRY_VAL scenes of make_scenes written as PNGs under
+    `tmp`, and its lens and checkpoint paths made absolute: (the config's
+    path, the val scene dir)."""
+    train_dir = write_scene_dirs(os.path.join(tmp, "train"),
+                                 *make_scenes(ENTRY_TRAIN, H, W, gen, device))
+    val_dir = write_scene_dirs(os.path.join(tmp, "val"),
+                               *make_scenes(ENTRY_VAL, H, W, gen, device))
+    with open(os.path.join(ROOT, "configs", name)) as f:
+        text = f.read()
+    for old, new in (("'./datasets/SynthMiddlebury/train'", repr(train_dir)),
+                     ("'./datasets/SynthMiddlebury/val'", repr(val_dir)),
+                     ("'./lenses/", repr(ROOT + "/lenses/")[:-1]),
+                     ("'./ckpt/", repr(ROOT + "/ckpt/")[:-1])):
+        check(old in text, f"{name} has no {old}")
+        text = text.replace(old, new)
+    config = os.path.join(tmp, name)
+    with open(config, "w") as f:
+        f.write(text)
+    return config, val_dir
+
+
+def state_equal(torch, a, b):
+    """Whether two train states hold the same weights, statistics, Adam
+    moments, counts and step, bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(x, y) for x, y in zip(a.opt.mu + a.opt.nu,
+                                                      b.opt.mu + b.opt.nu))
+            and int(a.opt.count) == int(b.opt.count)
+            and int(a.step) == int(b.step))
+
+
 def read_jsonl(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
@@ -349,21 +409,8 @@ def run_entry(torch, np, gen, device, make_scenes, trainer, fused_render,
 
     tmp = tempfile.mkdtemp(prefix="aadff_entry_")
     try:
-        train_dir = write_scene_dirs(os.path.join(tmp, "train"),
-                                     *make_scenes(ENTRY_TRAIN, H, W, gen, device))
-        val_dir = write_scene_dirs(os.path.join(tmp, "val"),
-                                   *make_scenes(ENTRY_VAL, H, W, gen, device))
-        with open(os.path.join(ROOT, "configs", "aber_aware_dff_synth.yml")) as f:
-            text = f.read()
-        for old, new in (("'./datasets/SynthMiddlebury/train'", repr(train_dir)),
-                         ("'./datasets/SynthMiddlebury/val'", repr(val_dir)),
-                         ("'./lenses/", repr(ROOT + "/lenses/")[:-1]),
-                         ("'./ckpt/", repr(ROOT + "/ckpt/")[:-1])):
-            check(old in text, f"config has no {old}")
-            text = text.replace(old, new)
-        config = os.path.join(tmp, "config.yml")
-        with open(config, "w") as f:
-            f.write(text)
+        config, val_dir = write_run_config(tmp, "aber_aware_dff_synth.yml",
+                                           make_scenes, gen, device)
         png_ms, scene_ms = [], []
         val_set = Middlebury(val_dir, resize=(H, W))
         for i, scene in enumerate(val_set.scenes):
@@ -386,14 +433,8 @@ def run_entry(torch, np, gen, device, make_scenes, trainer, fused_render,
         secs["chunk"] = time.perf_counter() - t
         fresh = trainer.create_train_state(type(state1.model)().to(device), LR, 1)
         saved = trainer.load_checkpoint(wd, fresh, "state")
-        a, b = state1.model.state_dict(), saved.model.state_dict()
-        resumed_equal = (all(torch.equal(a[k], b[k]) for k in a)
-                         and all(torch.equal(x, y) for x, y in zip(
-                             state1.opt.mu + state1.opt.nu,
-                             saved.opt.mu + saved.opt.nu))
-                         and int(saved.opt.count) == int(state1.opt.count)
-                         and int(saved.step) == int(state1.step))
-        del state1, fresh, saved, a, b
+        resumed_equal = state_equal(torch, state1, saved)
+        del state1, fresh, saved
         t = time.perf_counter()
         state2 = twin.main([*common, "--workdir", wd, "--k-per-dispatch", "2"])
         secs["resumed_chunk_k2"] = time.perf_counter() - t
@@ -458,6 +499,282 @@ def run_entry(torch, np, gen, device, make_scenes, trainer, fused_render,
         return fields
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_dfv_entry(torch, gen, device, make_scenes, trainer, fused_render,
+                  mlp_psf, procedural_step_ms):
+    """The dfv_entry phase: `configs/aber_aware_dff_synth.yml` on PNG
+    scenes, then the twin of scripts/4_aber_aware_dff_dfv_synth.py in this
+    process: one chunk of 2 epochs, a resumed chunk with 2 steps per call,
+    --eval-only best.  Returns the phase's fields; raises SmokeError on a
+    failed check."""
+    import math  # noqa: PLC0415
+    import shutil  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    from aadff_tpu_torch.dff.focus import select_focus_dist  # noqa: PLC0415
+    from aadff_tpu_torch.models.dfv.dffnet import DFVNet  # noqa: PLC0415
+    from aadff_tpu_torch.scripts import aber_aware_dff_dfv_synth as twin  # noqa: PLC0415
+    from aadff_tpu_torch.train import dff_dfv  # noqa: PLC0415
+
+    tmp = tempfile.mkdtemp(prefix="aadff_dfv_entry_")
+    try:
+        config, _ = write_run_config(tmp, "aber_aware_dff_synth.yml",
+                                     make_scenes, gen, device)
+        wd = os.path.join(tmp, "run")
+        common = ["--config", config, "--workdir", wd, "--total-epochs", "3"]
+        torch.cuda.synchronize()
+        reset_counts(fused_render, mlp_psf)
+        secs = {}
+        t = time.perf_counter()
+        state1 = twin.main([*common, "--epochs-per-chunk", "2"])
+        secs["chunk_2_epochs"] = time.perf_counter() - t
+        fresh = trainer.create_train_state(DFVNet().to(device), LR, 1)
+        resumed_equal = state_equal(torch, state1,
+                                    trainer.load_checkpoint(wd, fresh, "state"))
+        del state1, fresh
+        t = time.perf_counter()
+        state = twin.main([*common, "--epochs-per-chunk", "1",
+                           "--k-per-dispatch", "2"])
+        secs["resumed_chunk_k2"] = time.perf_counter() - t
+        t = time.perf_counter()
+        twin.main(["--config", config, "--workdir", wd, "--eval-only", "best"])
+        secs["eval_only"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = dict(fused_render.variant_launches)
+        mlp_launches = mlp_psf.launches
+        steps = int(state.step)
+
+        # the validation forward alone: one [1, 8, H, W] stack, eval mode
+        _, depth = make_scenes(1, H, W, gen, device)
+        focus = select_focus_dist(depth, N_STACK, mode="linear")
+        stack = torch.rand(1, N_STACK, H, W, 3, generator=gen, device=device)
+        eval_step = dff_dfv.make_dfv_eval_step()
+        val_forward_ms = time_ms(torch, lambda: eval_step(state, stack, focus), 3)
+        del state, stack
+
+        with open(os.path.join(wd, "progress.json")) as f:
+            progress = json.load(f)
+        logs = read_jsonl(os.path.join(wd, "train_log.jsonl"))
+        val = read_jsonl(os.path.join(wd, "metrics.jsonl"))
+        with open(os.path.join(wd, "eval_final.json")) as f:
+            final = json.load(f)
+        # a render per train step and per validation scene of each validation
+        renders = sum(r["steps"] for r in logs) + ENTRY_VAL * (len(val) + 1)
+        fields = {
+            "config": "configs/aber_aware_dff_synth.yml", "model": "DFVNet(level=2, use_diff=1)",
+            "scenes": {"train": ENTRY_TRAIN, "val": ENTRY_VAL, "res": [H, W]},
+            "progress": progress, "steps": steps,
+            "train_log": [{k: r[k] for k in ("epoch", "loss", "steps", "skipped",
+                                             "sec")} for r in logs],
+            "step_ms": [r["step_ms"] for r in logs],
+            "procedural_dfv_step_ms": procedural_step_ms,
+            "sec_per_epoch": [r["sec"] for r in logs],
+            "val": val, "eval_final": final, "val_forward_ms": val_forward_ms,
+            "run_s": secs, "resumed_equal": resumed_equal,
+            "launches": launches, "mlp_psf_launches": mlp_launches,
+            "expected_renders": renders,
+        }
+        check(progress["epoch"] == 3 and steps == 6,
+              f"progress {progress}, {steps} steps")
+        check(resumed_equal, "the resumed DFV state differs from the saved one")
+        for r in logs:
+            check(math.isfinite(r["loss"]) and r["skipped"] == 0
+                  and len(r["step_ms"]) == r["steps"],
+                  f"DFV train epoch {r['epoch']}: loss {r['loss']}, "
+                  f"{r['skipped']} skipped")
+        for m in val:
+            check(all(math.isfinite(m[k]) for k in dff_dfv.METRICS),
+                  f"non-finite DFV metrics {m}")
+        check(all(math.isfinite(final[k]) for k in ("abs_rel", "mse", "rmse", "acc1")),
+              f"non-finite eval_final {final}")
+        check(launches == {"stack/f32/full": renders} and mlp_launches == 0,
+              f"dfv_entry launches {launches}, expected {renders} stack/f32/full")
+        return fields
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_dfv_levels(torch, gen, device, make_scenes, lens, trainer,
+                   fused_render, mlp_psf):
+    """The dfv_levels phase: DFVNet levels 1, 3 and 4 (use_diff 1) from a
+    seeded init, one train step and one eval forward each at the main
+    configuration through B1; then each level's eval outputs on the card
+    and on the CPU from the same initial weights at 2 x 4 x 64x64, TF32 off.
+    Returns (the phase's fields, B1 launches)."""
+    import math  # noqa: PLC0415
+
+    from aadff_tpu_torch.dff.focus import select_focus_dist  # noqa: PLC0415
+    from aadff_tpu_torch.models.dfv.dffnet import DFVNet  # noqa: PLC0415
+    from aadff_tpu_torch.train import dff_dfv  # noqa: PLC0415
+
+    step, eval_step = dff_dfv.make_dfv_train_step(), dff_dfv.make_dfv_eval_step()
+    cpu_gen = torch.Generator().manual_seed(7)
+    small = torch.rand(2, 4, 64, 64, 3, generator=cpu_gen)
+    small_fd = torch.sort(0.5 + 2.5 * torch.rand(2, 4, generator=cpu_gen))[0]
+    fields = {"tol": DFV_CARD_VS_CPU}
+    torch.cuda.synchronize()
+    reset_counts(fused_render, mlp_psf)
+    for level in (1, 3, 4):
+        torch.manual_seed(level)
+        init = DFVNet(level=level, use_diff=1)
+        model = DFVNet(level=level, use_diff=1).to(device)
+        model.load_state_dict(init.state_dict())
+        state = trainer.create_train_state(model, LR, EPOCHS * TRAIN_STEPS)
+        (aif, depth), (aif2, depth2) = (make_scenes(BS, H, W, gen, device)
+                                        for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        focus = select_focus_dist(depth, N_STACK, mode="linear")
+        stack = trainer.render_focal_stack(lens, aif, depth, focus)
+        ev[1].record()
+        losses = step(state, stack, focus, depth)
+        ev[2].record()
+        torch.cuda.synchronize()
+        focus2 = select_focus_dist(depth2, N_STACK, mode="linear")
+        pred, std, prob = eval_step(state, trainer.render_focal_stack(
+            lens, aif2, depth2, focus2), focus2)
+        torch.cuda.synchronize()
+        rec = {"loss": float(losses["total"]),
+               "skipped_nonfinite": float(losses["skipped_nonfinite"]),
+               "render_ms": ev[0].elapsed_time(ev[1]),
+               "step_ms": ev[0].elapsed_time(ev[2]),
+               "outputs": [list(pred.shape), list(std.shape), list(prob.shape)],
+               "outputs_finite": all(bool(torch.isfinite(t).all())
+                                     for t in (pred, std, prob)),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "params": sum(p.numel() for p in model.parameters())}
+        del state, model, stack, pred, std, prob
+
+        # card against CPU, the initial weights in eval mode, TF32 off
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = DFVNet(level=level, use_diff=1).to(device).eval()
+        card.load_state_dict(init.state_dict())
+        with torch.no_grad():
+            ref = init.eval()(small, small_fd)
+            out = card(small.to(device), small_fd.to(device))
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        rec["card_vs_cpu_rel"] = [((o.cpu() - r).abs().max() / r.abs().max()).item()
+                                  for o, r in zip(out, ref)]
+        fields[f"level{level}"] = rec
+        check(math.isfinite(rec["loss"]) and rec["skipped_nonfinite"] == 0.0,
+              f"DFV level {level}: loss {rec['loss']}, skipped "
+              f"{rec['skipped_nonfinite']}")
+        check(rec["outputs_finite"] and math.isfinite(rec["peak_gib"]),
+              f"DFV level {level}: non-finite outputs")
+        check(max(rec["card_vs_cpu_rel"]) <= DFV_CARD_VS_CPU,
+              f"DFV level {level}: card vs CPU {rec['card_vs_cpu_rel']}")
+    torch.cuda.synchronize()
+    launches = dict(fused_render.variant_launches)
+    fields["launches"] = launches
+    check(launches == {"stack/f32/full": 6} and mlp_psf.launches == 0,
+          f"dfv_levels launches {launches}")
+    return fields, launches.get("stack/f32/full", 0)
+
+
+def run_thinlens(torch, np, gen, device, make_scenes, fused_render, mlp_psf):
+    """The thinlens phase: ThinLens.render against the render golden and
+    render_stack against its frame loop on the card; then one chunk of the
+    AiF twin and one of the DFV twin under
+    configs/aber_aware_dff_synth_thinlens.yml (the thin lens trains, PSFNet
+    validates).  Returns (the phase's fields, B1 launches)."""
+    import math  # noqa: PLC0415
+    import shutil  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    from aadff_tpu_torch.dff.focus import select_focus_dist  # noqa: PLC0415
+    from aadff_tpu_torch.psfnet.psfnet import ThinLens  # noqa: PLC0415
+    from aadff_tpu_torch.scripts import aber_aware_dff_dfv_synth  # noqa: PLC0415
+    from aadff_tpu_torch.scripts import aber_aware_dff_synth  # noqa: PLC0415
+    from aadff_tpu_torch.utils.config import load_config  # noqa: PLC0415
+
+    g = np.load(RENDER_GOLDENS)
+    # the golden's own lens (tests/test_psfnet_render.py:162)
+    golden = ThinLens(50.0, 1.8, KS, [25.968, 34.624], (480, 640), device=device)
+    err_golden = float(np.abs(golden.render(g["img"], g["depth"], g["foc"])
+                              .cpu().numpy() - g["thinlens_rendered"]).max())
+    sec = load_config(os.path.join(ROOT, "configs",
+                                   "aber_aware_dff_synth_thinlens.yml"))["train"]
+    thin = ThinLens(float(sec["foc_len"]), float(sec["fnum"]), KS,
+                    [float(v) for v in sec["sensor_size"]], (H, W), device=device)
+    aif, depth = make_scenes(BS, H, W, gen, device)
+    focus = select_focus_dist(depth, N_STACK, mode="linear")
+    args = (aif, depth * -1e3, focus * -1e3)
+    torch.cuda.synchronize()
+    reset_counts(fused_render, mlp_psf)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stack = thin.render_stack(*args)
+    torch.cuda.synchronize()
+    render_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    loop = torch.stack([thin.render(aif, args[1], args[2][:, s])
+                        for s in range(N_STACK)], dim=1)
+    loop_err = (stack - loop).abs().max().item()
+    finite = bool(torch.isfinite(stack).all())
+    del stack, loop
+    render_ms = time_ms(torch, lambda: thin.render_stack(*args), 3)
+    render_launches = fused_render.launches + mlp_psf.launches
+
+    tmp = tempfile.mkdtemp(prefix="aadff_thinlens_")
+    try:
+        config, _ = write_run_config(tmp, "aber_aware_dff_synth_thinlens.yml",
+                                     make_scenes, gen, device)
+        chunks = {}
+        for name, twin in (("aif", aber_aware_dff_synth),
+                           ("dfv", aber_aware_dff_dfv_synth)):
+            wd = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = fused_render.launches
+            t = time.perf_counter()
+            state = twin.main(["--config", config, "--workdir", wd,
+                               "--total-epochs", "1", "--epochs-per-chunk", "1"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+            log = read_jsonl(os.path.join(wd, "train_log.jsonl"))[0]
+            val = read_jsonl(os.path.join(wd, "metrics.jsonl"))[0]
+            chunks[name] = {
+                "steps": int(state.step), "loss": log["loss"],
+                "skipped": log["skipped"], "step_ms": log["step_ms"],
+                "sec": log["sec"], "run_s": run_s, "val": val,
+                "b1_launches": fused_render.launches - before,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del state
+        torch.cuda.synchronize()
+        launches = dict(fused_render.variant_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fields = {"config": "configs/aber_aware_dff_synth_thinlens.yml",
+              "golden_tol": GOLDEN_TOL, "loop_tol": LOOP_TOL,
+              "golden_max_abs_err": err_golden, "loop_vs_stack_max_abs": loop_err,
+              "render": {"shape": [BS, N_STACK, 3, H, W], "ms": render_ms,
+                         "peak_gib_above_inputs": render_peak_gib,
+                         "kernel_launches": render_launches,
+                         "route": "tap loop (plain PyTorch; JAX renders it in "
+                                  "plain XLA, no pallas_call)"},
+              "chunks": chunks, "launches": launches,
+              "mlp_psf_launches": mlp_psf.launches}
+    check(err_golden < GOLDEN_TOL, f"thin-lens golden {err_golden:.3g}")
+    check(finite and loop_err <= LOOP_TOL,
+          f"thin-lens stack vs frame loop {loop_err:.3g}, finite {finite}")
+    check(render_launches == 0, f"the thin-lens render launched {render_launches}")
+    for name, rec in chunks.items():
+        check(rec["steps"] == 2 and rec["skipped"] == 0 and math.isfinite(rec["loss"]),
+              f"thin-lens {name} chunk: {rec['steps']} steps, loss {rec['loss']}")
+        check(all(math.isfinite(v) for v in rec["val"].values()),
+              f"thin-lens {name} metrics {rec['val']}")
+        # B1 renders validation only: none of the 2 training stacks
+        check(rec["b1_launches"] == ENTRY_VAL,
+              f"thin-lens {name} chunk: {rec['b1_launches']} B1 launches, "
+              f"expected {ENTRY_VAL} (validation only)")
+    check(launches == {"stack/f32/full": 2 * ENTRY_VAL} and mlp_psf.launches == 0,
+          f"thinlens launches {launches}")
+    return fields, launches.get("stack/f32/full", 0)
 
 
 def run_optics(torch, np, device):
@@ -1174,14 +1491,35 @@ def main():
     check(dfv_launches == TRAIN_STEPS + 1, f"{dfv_launches} DFV-path launches")
     check(mlp_psf.launches == 0, "the DFV path left the fused route")
 
+    # ---- DFVNet levels 1, 3 and 4 from a seeded init --------------------
+    t0 = time.perf_counter()
+    del dfv, dfv_state
+    levels, levels_launches = run_dfv_levels(torch, gen, device, make_scenes,
+                                             net, trainer, fused_render, mlp_psf)
+    phase("dfv_levels", t0, **levels)
+
     # ---- the entry point as users run it: YAML config and PNG scene
     # directories -> chunked training, resume, evaluation -> checkpoints ----
     t0 = time.perf_counter()
-    del dfv, dfv_state
     entry = run_entry(torch, np, gen, device, make_scenes, trainer,
                       fused_render, mlp_psf)
     entry_launches = entry["launches"]["stack/f32/full"]
     phase("entry", t0, **entry)
+
+    # ---- DFVNet's entry point: the twin of scripts/4_* on PNG scenes -----
+    t0 = time.perf_counter()
+    dfv_entry = run_dfv_entry(torch, gen, device, make_scenes, trainer,
+                              fused_render, mlp_psf,
+                              [r["step_ms"] for r in dfv_steps])
+    dfv_entry_launches = dfv_entry["launches"]["stack/f32/full"]
+    phase("dfv_entry", t0, **dfv_entry)
+
+    # ---- the thin-lens baseline: its render, and both twins under
+    # configs/aber_aware_dff_synth_thinlens.yml ----------------------------
+    t0 = time.perf_counter()
+    thinlens, thinlens_launches = run_thinlens(torch, np, gen, device,
+                                               make_scenes, fused_render, mlp_psf)
+    phase("thinlens", t0, **thinlens)
 
     # ---- the lens ray tracer and PSFNet fitting --------------------------
     t0 = time.perf_counter()
@@ -1218,7 +1556,11 @@ def main():
         entry("fused_psf_render", render_src, b1, main_launches, (err_stack,),
               KERNEL_TOL, kernel_ms, plain_ms, (bound_ms, bound_by),
               variant="stack/f32/full", dfv_launches=dfv_launches,
-              entry_launches=entry_launches, psf_fit_launches=fit_launches),
+              dfv_levels_launches=levels_launches,
+              entry_launches=entry_launches,
+              dfv_entry_launches=dfv_entry_launches,
+              thinlens_launches=thinlens_launches,
+              psf_fit_launches=fit_launches),
         entry("fused_psf_render_bf16", render_src, b1,
               bf16_launches["stack/bf16/full"], b1_16["stack_2x8x3x480x640"],
               bf16_tol, b1_16_ms, b1_16_plain_ms, (b1_16_bound, b1_16_bound_by),

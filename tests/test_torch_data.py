@@ -318,11 +318,7 @@ def test_get_lens_builds_psfnet(tmp_path):
         np.testing.assert_array_equal(w, np.asarray(ref["Dense_0"]["kernel"]).T)
 
 
-def test_get_lens_refuses_thinlens_and_missing_lens(tmp_path):
-    args = _args(tmp_path)
-    args["train"]["lens"] = "thinlens"
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        factory.get_lens(args, device="cpu")
+def test_get_lens_refuses_missing_lens(tmp_path):
     args = _args(tmp_path)
     args["test"]["lens"] = str(tmp_path / "absent.json")
     with pytest.raises(FileNotFoundError):

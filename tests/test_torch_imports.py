@@ -21,7 +21,8 @@ def test_importing_the_port_loads_no_jax():
     """Every module of the port, the entry script included."""
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in PORT_FILES if p.startswith("aadff_tpu_torch")]
-    for twin in ("aber_aware_dff_synth", "fit_psfnet", "psf_gate"):
+    for twin in ("aber_aware_dff_synth", "aber_aware_dff_dfv_synth",
+                 "fit_psfnet", "psf_gate"):
         assert f"aadff_tpu_torch.scripts.{twin}" in modules
     code = (f"import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
