@@ -4,10 +4,11 @@ factors, augmentation policy and batch order.
 
 Items are host numpy arrays, CHW float32 like the reference's ToTensor
 output; the train loop moves them to the device.  Images are read with the
-port's PNG reader (`utils/image.py`), which reads PNG only: a JPEG file
-(Matterport3D's colour images, RealWorld's .JPG captures) raises.  The
-augmentation rotates with `scipy.ndimage.rotate`, which the JAX package
-uses when its native library is not built (`dataset.py:32-43`).
+port's readers (`utils/image.py`), as OpenCV reads them: PNG, JPEG
+(Matterport3D's colour images, RealWorld's .JPG captures) and EXR
+(FlyingThings3D's disp.exr).  The augmentation rotates with
+`scipy.ndimage.rotate`, which the JAX package uses when its native library
+is not built (`dataset.py:32-43`).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from glob import glob
 import numpy as np
 from scipy.ndimage import rotate
 
-from ..utils.image import imread_color, read_pfm, read_png, resize_hw
+from ..utils.image import imread_color, read_exr, read_pfm, read_png, resize_hw
 
 
 def _to_chw(img_hwc):
@@ -111,13 +112,11 @@ class FlyingThings3D(Dataset):
         return len(self.scenes)
 
     def _read_disp(self, scene):
-        """disp.pfm, or disp.npy (the JAX package reads disp.exr first, with
-        OpenCV's EXR codec, which the port does not have)."""
+        """disp.exr as in the reference (dataset.py:79), else disp.pfm,
+        else disp.npy, as the JAX package reads them."""
         d = self.dataset_dir
         if os.path.exists(f"{d}/{scene}/disp.exr"):
-            raise NotImplementedError(
-                f"{d}/{scene}/disp.exr: EXR is not read by the port; provide "
-                f"disp.pfm or disp.npy")
+            return read_exr(f"{d}/{scene}/disp.exr")
         if os.path.exists(f"{d}/{scene}/disp.pfm"):
             return read_pfm(f"{d}/{scene}/disp.pfm")[0]
         return np.load(f"{d}/{scene}/disp.npy")

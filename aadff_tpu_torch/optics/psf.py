@@ -172,11 +172,13 @@ def trace_from_points(params, metas, point_obj, u_theta, u_r, pupil_r, pupilz,
     u_theta, u_r: [n] shared by the points, or [n, N]; the pupil's radius
     and z) through the lens to the sensor plane: [n, N] rays.
 
-    Each ray starts on the plane of the first vertex, moved there in
-    float64: in f32, o + t d from an object metres away keeps only ~1e-4 mm
-    of the hit point (1 ulp of |o_z|).  JAX keeps more of it through XLA's
-    fused multiply-add; this start keeps more still
-    (tests/test_torch_psf.py compares both with a float64 trace)."""
+    Each ray's direction is normalised in float64 and the ray starts on
+    the plane of the first vertex, moved there in float64: in f32, o + t d
+    from an object metres away keeps only ~1e-4 mm of the hit point (1 ulp
+    of |o_z|), and an f32 direction bends it by a few 1e-6 mm more.  JAX
+    keeps more of it through XLA's fused multiply-add; this start keeps
+    more still (tests/test_torch_psf.py compares both with a float64
+    trace)."""
     n_rays = u_theta.shape[0]
     if u_theta.dim() == 1:
         u_theta, u_r = u_theta[:, None], u_r[:, None]
@@ -185,32 +187,28 @@ def trace_from_points(params, metas, point_obj, u_theta, u_r, pupil_r, pupilz,
     o2 = torch.stack(torch.broadcast_tensors(
         r * torch.cos(theta), r * torch.sin(theta), pupilz), dim=-1)
     o = torch.broadcast_to(point_obj[None], (n_rays,) + tuple(point_obj.shape))
-    ray = make_rays(o, o2 - o)
-    o64, d64 = ray.o.double(), ray.d.double()
+    o64 = o.double()
+    d64 = o2.double() - o64
+    d64 = d64 / torch.linalg.vector_norm(d64, dim=-1, keepdim=True)
     t = (params[lens_range[0]].d.double() - o64[..., 2]) / d64[..., 2]
-    ray = ray._replace(o=(o64 + d64 * t[..., None]).float())
+    ray = make_rays(o64 + d64 * t[..., None], d64, normalize=False)
     ray, _ = trace_rays(ray, params, metas, wvln, True, False, lens_range, False)
     return propagate_to(ray, d_sensor)
 
 
-def psf_impl(params, metas, points, draws: PsfDraws, ks, wvln, center,
-             lens_range, d_sensor, pupilz, pupilr, hfov, r_last, sensor_w,
-             sensor_h, pixel_size):
-    """points [N, 3] normalised (x, y in [-1, 1], z < 0 in mm) -> PSFs
-    [N, ks, ks], each summing to 1 (or 0 where no ray lands).
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
-    The lens scalars are numbers or tensors that broadcast against [N]
-    (per-point focus states batch several calls); they are taken in f32,
-    as JAX takes them.  Pupil draws of shape [n] are shared by every
-    point, as in JAX's call; of shape [n, N] each point has its own."""
+
+def psf_rays(params, metas, points, draws: PsfDraws, wvln, center, lens_range,
+             d_sensor, pupilz, pupilr, hfov, r_last, sensor_w, sensor_h):
+    """The rays of `psf_impl` on the sensor: (pupil rays [spp, N], chief
+    rays [GEO_SPP, N] through the half pupil, or None when `center` is
+    False).  A ray's `ra` is 0 where the lens cut it."""
     device = points.device
-
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-    d_sensor, pupilz, pupilr, hfov, r_last, sensor_w, sensor_h, pixel_size = (
-        f32(x) for x in (d_sensor, pupilz, pupilr, hfov, r_last, sensor_w,
-                         sensor_h, pixel_size))
+    d_sensor, pupilz, pupilr, hfov, r_last, sensor_w, sensor_h = (
+        _f32(x, device) for x in (d_sensor, pupilz, pupilr, hfov, r_last,
+                                  sensor_w, sensor_h))
     depth = points[:, 2]
     scale = -depth * torch.tan(hfov) / r_last
     point_obj = torch.stack(
@@ -227,24 +225,53 @@ def psf_impl(params, metas, points, draws: PsfDraws, ks, wvln, center,
                                  pupilz, d_sensor, wvln, lens_range)
 
     ray = sample_and_trace(draws.theta, draws.r, pupilr)
+    chief = (sample_and_trace(draws.chief_theta, draws.chief_r, pupilr * 0.5)
+             if center else None)
+    return ray, chief
 
-    if center:
-        # chief-ray PSF centre through the half pupil
-        chief = sample_and_trace(draws.chief_theta, draws.chief_r, pupilr * 0.5)
+
+def psf_centre(chief, points, sensor_w, sensor_h):
+    """Each PSF's centre on the sensor [N, 2]: the centroid of the kept
+    chief rays of `psf_rays`, or, with `chief` None, the point's
+    perspective position."""
+    if chief is not None:
         pc = torch.sum(chief.o * chief.ra[..., None], dim=0) / (
             torch.sum(chief.ra[..., None], dim=0) + EPSILON
         )
-        pointc = -pc[..., :2]
-    else:
-        pointc = torch.stack(
-            [points[:, 0] * sensor_w / 2, points[:, 1] * sensor_h / 2], dim=-1
-        )
+        return -pc[..., :2]
+    sensor_w, sensor_h = (_f32(x, points.device) for x in (sensor_w, sensor_h))
+    return torch.stack(
+        [points[:, 0] * sensor_w / 2, points[:, 1] * sensor_h / 2], dim=-1
+    )
 
-    psf = forward_integral(ray, ps=pixel_size, ks=ks, pointc_ref=pointc)
+
+def psf_from_rays(ray, centre, ks, pixel_size):
+    """Rasterise the rays of `psf_rays` into PSFs [N, ks, ks] around
+    `centre` [N, 2], each summing to 1 (or 0 where no ray lands)."""
+    pixel_size = _f32(pixel_size, ray.o.device)
+    psf = forward_integral(ray, ps=pixel_size, ks=ks, pointc_ref=centre)
     # Guarded normalisation: where every ray misses the window or the
     # aperture the sum is 0, and an all-zero kernel is the answer.
     return psf / torch.clamp(torch.sum(psf, dim=(-1, -2), keepdim=True),
                              min=EPSILON)
+
+
+def psf_impl(params, metas, points, draws: PsfDraws, ks, wvln, center,
+             lens_range, d_sensor, pupilz, pupilr, hfov, r_last, sensor_w,
+             sensor_h, pixel_size):
+    """points [N, 3] normalised (x, y in [-1, 1], z < 0 in mm) -> PSFs
+    [N, ks, ks], each summing to 1 (or 0 where no ray lands): `psf_rays`,
+    `psf_centre`, then `psf_from_rays`.
+
+    The lens scalars are numbers or tensors that broadcast against [N]
+    (per-point focus states batch several calls); they are taken in f32,
+    as JAX takes them.  Pupil draws of shape [n] are shared by every
+    point, as in JAX's call; of shape [n, N] each point has its own."""
+    ray, chief = psf_rays(params, metas, points, draws, wvln, center,
+                          lens_range, d_sensor, pupilz, pupilr, hfov, r_last,
+                          sensor_w, sensor_h)
+    return psf_from_rays(ray, psf_centre(chief, points, sensor_w, sensor_h), ks,
+                         pixel_size)
 
 
 def lens_scalars(lens):

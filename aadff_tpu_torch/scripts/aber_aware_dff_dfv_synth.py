@@ -50,11 +50,11 @@ from ..models.dfv.dffnet import DFVNet
 from ..train.dff_aif import resolve_device
 from ..train.dff_dfv import (make_dfv_eval_step, make_dfv_train_multi_step,
                              make_dfv_train_step, validate_dfv)
-from ..train.trainer import (create_train_state, load_checkpoint,
+from ..train.trainer import (StepTimer, create_train_state, load_checkpoint,
                              render_focal_stack, save_checkpoint)
 from ..utils.config import load_config
 from ..utils.logging import set_seed
-from .aber_aware_dff_synth import REPO, StepTimer, train_epoch
+from .aber_aware_dff_synth import REPO, train_epoch
 
 EVAL_KEYS = ("abs_rel", "mse", "rmse", "acc1")  # the JAX script's eval_final.json
 

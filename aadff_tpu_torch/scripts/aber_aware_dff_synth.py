@@ -40,7 +40,7 @@ from ..dff.factory import get_dataset, get_lens
 from ..dff.focus import select_focus_dist
 from ..models.aifnet import AiFDepthNet
 from ..train.dff_aif import TASKS, nan_depth, resolve_device, to_device
-from ..train.trainer import (create_train_state, load_checkpoint,
+from ..train.trainer import (StepTimer, create_train_state, load_checkpoint,
                              make_aif_eval_step, make_aif_train_multi_step,
                              make_aif_train_step, render_focal_stack,
                              save_checkpoint, validate)
@@ -48,42 +48,6 @@ from ..utils.config import load_config
 from ..utils.logging import set_seed
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-class StepTimer:
-    """Times each train call (render included) without waiting for the
-    device: CUDA events on a GPU, the host clock on the CPU (where every op
-    has finished when it returns)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.calls = []
-
-    def start(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def stop(self, start, steps: int):
-        if self.cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self.calls.append((start, end, steps))
-        else:
-            self.calls.append(((time.perf_counter() - start) * 1e3, steps))
-
-    def step_ms(self) -> list[float]:
-        """ms of each step since the last call, a K-step call's time split
-        evenly over its K steps."""
-        if self.cuda:
-            torch.cuda.synchronize()
-            calls = [(s.elapsed_time(e), k) for s, e, k in self.calls]
-        else:
-            calls = self.calls
-        self.calls = []
-        return [ms / k for ms, k in calls for _ in range(k)]
 
 
 def train_epoch(train_loader, device, n_stack, single_step, multi_step, k,

@@ -77,11 +77,12 @@ def config(path="configs/aber_aware_dff_aif.yml"):
     return args
 
 
-def train(args, device="cuda"):
+def train(args, device="cuda", timer=None):
     """Train for args["epochs"] epochs, validating and checkpointing after
     each one, and return the train state.  As in the JAX package, the loop
     runs epochs + 1 training passes: validation comes before each pass but
-    the first."""
+    the first.  With a `trainer.StepTimer`, each train step (render
+    included) is timed and the loop's wait for each batch recorded."""
     device = resolve_device(device)
     train_lens, test_lens = get_lens(args, device)
     task = TASKS[args["pred_name"]]
@@ -123,13 +124,17 @@ def train(args, device="cuda"):
                 save_checkpoint(args["results_dir"], state, "best_acc1")
 
         epoch_loss, n_batches = 0.0, 0
-        for aif, depth in train_loader:
+        for aif, depth in (train_loader if timer is None
+                           else timer.timed(train_loader)):
             if nan_depth(depth):
                 continue
             aif, depth = to_device(device, aif, depth)
+            t = None if timer is None else timer.start()
             focus_dists = select_focus_dist(depth, n_stack, mode="linear")
             stack = render_focal_stack(train_lens, aif, depth, focus_dists)
             losses = train_step(state, stack, focus_dists, depth, aif)
+            if timer is not None:
+                timer.stop(t, 1)
             epoch_loss += float(losses["total"])
             n_batches += 1
         if n_batches:

@@ -120,13 +120,15 @@ def validate_dfv(eval_step, state: TrainState, lens, batches, n_stack: int,
     return scores
 
 
-def train(args, device="cuda"):
+def train(args, device="cuda", timer=None):
     """Train DFVNet(level 2, use_diff 1) for args["epochs"] epochs and
     return the train state.  As in the JAX package: the cosine runs over
     epochs x len(loader) steps, the loop runs epochs + 1 training passes
     with validation before each pass but the first, then depth_net_last
     and, at a lower validation MSE, depth_net_best.  No `dffnet_pretrained`
-    is loaded, as the JAX package loads none."""
+    is loaded, as the JAX package loads none.  With a `trainer.StepTimer`,
+    each train step (render included) is timed and the loop's wait for
+    each batch recorded."""
     device = resolve_device(device)
     train_lens, test_lens = get_lens(args, device)
     n_stack = args["n_stack"]
@@ -152,13 +154,17 @@ def train(args, device="cuda"):
                 args["mse_min"] = scores["mse"]
                 save_checkpoint(args["results_dir"], state, "best")
         epoch_loss, n_batches = 0.0, 0
-        for aif, depth in train_loader:
+        for aif, depth in (train_loader if timer is None
+                           else timer.timed(train_loader)):
             if np.isnan(depth).any():
                 continue
             aif, depth = to_device(device, aif, depth)
+            t = None if timer is None else timer.start()
             focus_dists = select_focus_dist(depth, n_stack, mode="linear")
             stack = render_focal_stack(train_lens, aif, depth, focus_dists)
             losses = train_step(state, stack, focus_dists, depth)
+            if timer is not None:
+                timer.stop(t, 1)
             epoch_loss += float(losses["total"])
             n_batches += 1
         if n_batches:

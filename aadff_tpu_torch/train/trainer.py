@@ -37,6 +37,57 @@ from ..utils import flax_msgpack
 from ..utils.image import imwrite_colormap, write_png
 
 
+class StepTimer:
+    """Times each train call (render included) without waiting for the
+    device: CUDA events on a GPU, the host clock on the CPU (where every op
+    has finished when it returns).  `timed(loader)` also records the host
+    ms the loop waits for each batch (`waits`)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.calls = []
+        self.waits = []
+
+    def start(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def stop(self, start, steps: int):
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.calls.append((start, end, steps))
+        else:
+            self.calls.append(((time.perf_counter() - start) * 1e3, steps))
+
+    def step_ms(self) -> list[float]:
+        """ms of each step since the last call, a K-step call's time split
+        evenly over its K steps."""
+        if self.cuda:
+            torch.cuda.synchronize()
+            calls = [(s.elapsed_time(e), k) for s, e, k in self.calls]
+        else:
+            calls = self.calls
+        self.calls = []
+        return [ms / k for ms, k in calls for _ in range(k)]
+
+    def timed(self, batches):
+        """Yield the batches of `batches`, appending to `waits` the host ms
+        spent waiting for each."""
+        it = iter(batches)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(1e3 * (time.perf_counter() - t))
+            yield batch
+
+
 class Adam:
     """optax.adam (b1 0.9, b2 0.999, eps 1e-8) scaled by
     optax.cosine_decay_schedule(lr, decay_steps, alpha=0); moments and counts

@@ -1,8 +1,12 @@
-"""Image I/O with nothing but zlib and numpy (the port of
-`aadff_tpu/utils/image.py`, which needs OpenCV): PNG read and write, PFM
-read, the JET colour map and the bilinear resize of `cv2.resize`.
+"""Image I/O without OpenCV (the port of `aadff_tpu/utils/image.py`, which
+needs it): PNG read and write, JPEG read, PFM and OpenEXR read, the JET
+colour map and the bilinear resize of `cv2.resize`.  PNG, PFM and EXR are
+read with zlib and numpy; JPEG with the port's own C++ decoder
+(`csrc/jpeg_decode.cpp`, built at first use), bit for bit as OpenCV's
+libjpeg-turbo decodes it.
 
-Colour images are in RGB order throughout (OpenCV's are BGR).  PNG:
+Colour images are in RGB order (OpenCV's are BGR), except that `read_exr`
+keeps OpenCV's BGR, as the JAX package reads EXR with OpenCV.  PNG:
   * `read_png` decodes non-interlaced 8- and 16-bit grey, grey+alpha, RGB
     and RGBA (16-bit samples are big-endian in the file), undoing all five
     row filters (OpenCV's writer picks them row by row); palette images,
@@ -13,6 +17,7 @@ PFM follows the format read by the reference `pfmreader.py:1-64`.
 """
 from __future__ import annotations
 
+import ctypes
 import re
 import struct
 import zlib
@@ -20,6 +25,7 @@ import zlib
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SOI = b"\xff\xd8"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type -> samples a pixel
 
 # cv2.COLORMAP_JET as RGB triples for levels 0..255 (OpenCV's table, which is
@@ -119,11 +125,8 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_PNG_SIGNATURE):
-        if data.startswith(b"\xff\xd8"):
-            raise NotImplementedError(
-                f"{path}: JPEG decoding is not available in the port (it "
-                f"reads PNG with zlib and numpy only)")
-        raise ValueError(f"{path}: not a PNG file")
+        kind = " (a JPEG: read it with read_jpeg)" if data.startswith(_JPEG_SOI) else ""
+        raise ValueError(f"{path}: not a PNG file{kind}")
     header, idat = None, []
     for ctype, payload in _chunks(data, path):
         if ctype == b"IHDR":
@@ -185,10 +188,63 @@ def write_png(path: str, img: np.ndarray):
                 + chunk(b"IEND", b""))
 
 
+# ================================
+# JPEG
+# ================================
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """Apply an EXIF orientation (1-8) as OpenCV's imread does
+    (`ExifTransform`: a transpose for 5-8, then flips)."""
+    if orientation >= 5:
+        img = img.transpose(1, 0, 2)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    for axis in flip:
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """Decode a JPEG file to 8-bit RGB [H, W, 3], equal bit for bit to
+    `cv2.imread(path)` (libjpeg-turbo's islow IDCT, fancy upsampling and
+    YCbCr tables) in RGB order: grey is repeated to three channels, and the
+    EXIF orientation of an APP1 segment is applied as OpenCV applies it.
+
+    The decoder is the port's C++ (`csrc/jpeg_decode.cpp`), built at first
+    use (`utils/_host_build.py`).  Baseline 8-bit Huffman files, grey or
+    YCbCr at 4:4:4, 4:2:2 or 4:2:0, with or without restart intervals, are
+    read (and 4:1:1); progressive, arithmetic-coded, 12-bit, lossless,
+    CMYK, RGB-coded, multi-scan and 4:4:0 files raise NotImplementedError,
+    and a malformed file ValueError, each naming the file."""
+    from ._host_build import host_library  # noqa: PLC0415 - built on first use
+
+    with open(path, "rb") as f:
+        data = f.read()
+    lib = host_library()
+    err = ctypes.create_string_buffer(256)
+    info = (ctypes.c_int32 * 4)()
+
+    def raise_for(code):
+        if code == 1:
+            raise NotImplementedError(f"{path}: {err.value.decode()} is not read")
+        if code:
+            raise ValueError(f"{path}: {err.value.decode()}")
+
+    raise_for(lib.aadff_jpeg_info(data, len(data), info, err, len(err)))
+    h, w, _, orientation = info
+    out = np.empty((h, w, 3), np.uint8)
+    raise_for(lib.aadff_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes,
+                                    err, len(err)))
+    return _orient(out, orientation)
+
+
 def imread_color(path: str) -> np.ndarray:
     """An image as 8-bit RGB [H, W, 3], as `cv2.imread(path)` reads it (in
-    RGB order): grey is repeated, alpha dropped, 16-bit samples keep their
+    RGB order), whatever its name says: a JPEG by `read_jpeg`, else a PNG,
+    whose grey is repeated, alpha dropped and 16-bit samples keep their
     high byte."""
+    with open(path, "rb") as f:
+        is_jpeg = f.read(2) == _JPEG_SOI
+    if is_jpeg:
+        return read_jpeg(path)
     img = read_png(path)
     if img.ndim == 2:
         img = img[..., None]
@@ -299,3 +355,135 @@ def read_and_clean_pfm(path, clip_percentile=99.0):
         fill = np.percentile(data[finite], clip_percentile)
         data = np.where(finite, data, fill)
     return data, scale
+
+
+# ================================
+# EXR
+# ================================
+_EXR_MAGIC = b"\x76\x2f\x31\x01"
+_EXR_PIXEL = {0: np.dtype("<u4"), 1: np.dtype("<f2"), 2: np.dtype("<f4")}
+# compression id -> (name, scanlines per chunk); NONE, ZIPS and ZIP are read
+_EXR_COMPRESSION = {0: ("NONE", 1), 1: ("RLE", 1), 2: ("ZIPS", 1), 3: ("ZIP", 16),
+                    4: ("PIZ", 32), 5: ("PXR24", 16), 6: ("B44", 32),
+                    7: ("B44A", 32), 8: ("DWAA", 32), 9: ("DWAB", 256)}
+
+
+def _exr_header(data: bytes, path: str):
+    """{attribute name: (type, value bytes)} and the offset after it."""
+    attrs, pos = {}, 8
+    while data[pos] != 0:
+        name_end = data.index(b"\0", pos)
+        type_end = data.index(b"\0", name_end + 1)
+        (size,) = struct.unpack_from("<i", data, type_end + 1)
+        start = type_end + 5
+        if size < 0 or start + size > len(data):
+            raise ValueError(f"{path}: truncated EXR header")
+        attrs[data[pos:name_end].decode()] = (data[name_end + 1:type_end].decode(),
+                                              data[start:start + size])
+        pos = start + size
+    return attrs, pos + 1
+
+
+def _exr_channels(value: bytes, path: str):
+    """The chlist attribute: [(name, pixel type, x sampling, y sampling)] in
+    the file's order (sorted by name, the order of the pixel data)."""
+    chans, pos = [], 0
+    while value[pos] != 0:
+        end = value.index(b"\0", pos)
+        ptype, _, xs, ys = struct.unpack_from("<iB3xii", value, end + 1)
+        if ptype not in _EXR_PIXEL:
+            raise ValueError(f"{path}: EXR pixel type {ptype}")
+        chans.append((value[pos:end].decode(), ptype, xs, ys))
+        pos = end + 17
+    return chans
+
+
+def _exr_unpredict(raw: bytes) -> bytes:
+    """Undo the byte predictor and the two-half interleave that the ZIP
+    compressor applies before deflating (OpenEXR's ImfZip.cpp)."""
+    t = np.frombuffer(raw, np.uint8).astype(np.int64)
+    t = ((np.cumsum(t - 128) + 128) & 0xFF).astype(np.uint8)
+    out = np.empty_like(t)
+    half = (t.size + 1) // 2
+    out[0::2], out[1::2] = t[:half], t[half:]
+    return out.tobytes()
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read a scanline OpenEXR file as `cv2.imread(path, cv2.IMREAD_ANYCOLOR
+    | cv2.IMREAD_ANYDEPTH)` returns it (OpenCV's `ExrDecoder`): the data
+    window's pixels, float32; [H, W] for a file whose only colour channel is
+    Y, [H, W, 3] in BGR order for one with R, G and B (other channels are
+    ignored).  As in OpenCV, a file whose read channels are all UINT comes
+    back as int32 (the same 32 bits).  HALF, FLOAT and UINT channels;
+    NONE, ZIPS and ZIP compression.  Tiled, deep and multi-part files,
+    other compressions, sub-sampled channels, alpha, luminance/chroma and
+    partial R, G, B sets raise NotImplementedError naming the file; a file
+    with none of R, G, B, Y, or a malformed one, ValueError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_EXR_MAGIC):
+        raise ValueError(f"{path}: not an OpenEXR file")
+    (version,) = struct.unpack_from("<i", data, 4)
+    for bit, kind in ((0x200, "tiled"), (0x800, "deep"), (0x1000, "multi-part")):
+        if version & bit:
+            raise NotImplementedError(f"{path}: {kind} EXR is not read")
+    attrs, pos = _exr_header(data, path)
+    try:
+        chans = _exr_channels(attrs["channels"][1], path)
+        compression = attrs["compression"][1][0]
+        xmin, ymin, xmax, ymax = struct.unpack("<4i", attrs["dataWindow"][1])
+    except KeyError as e:
+        raise ValueError(f"{path}: EXR header has no {e.args[0]} attribute") from None
+    name, lines = _EXR_COMPRESSION.get(compression, (str(compression), 0))
+    if compression not in (0, 2, 3):
+        raise NotImplementedError(f"{path}: EXR {name} compression is not read")
+    if any((xs, ys) != (1, 1) for _, _, xs, ys in chans):
+        raise NotImplementedError(f"{path}: sub-sampled EXR channels are not read")
+    names = [c[0] for c in chans]
+    if "A" in names:
+        raise NotImplementedError(f"{path}: EXR alpha is not read")
+    rgb = [c for c in ("B", "G", "R") if c in names]
+    if rgb and len(rgb) < 3:
+        raise NotImplementedError(f"{path}: EXR with only {rgb} of R, G, B")
+    if not rgb and ("RY" in names or "BY" in names):
+        raise NotImplementedError(f"{path}: luminance/chroma EXR is not read")
+    read = rgb or (["Y"] if "Y" in names else [])
+    if not read:
+        raise ValueError(f"{path}: EXR has none of the channels R, G, B, Y "
+                         f"(it has {names})")
+
+    W, H = xmax - xmin + 1, ymax - ymin + 1
+    widths = [W * _EXR_PIXEL[t].itemsize for _, t, _, _ in chans]
+    line_bytes = sum(widths)
+    n_chunks = -(-H // lines)
+    offsets = np.frombuffer(data, "<u8", n_chunks, pos)
+    planes = {c: np.empty((H, W), _EXR_PIXEL[t]) for c, t, _, _ in chans if c in read}
+    for off in offsets.tolist():
+        y, size = struct.unpack_from("<ii", data, off)
+        ny = min(lines, ymax - y + 1)
+        if not 0 <= y - ymin < H or off + 8 + size > len(data):
+            raise ValueError(f"{path}: bad EXR chunk at y = {y}")
+        raw = data[off + 8:off + 8 + size]
+        expected = ny * line_bytes
+        if size < expected:   # stored compressed only where that is smaller
+            try:
+                raw = zlib.decompress(raw)
+            except zlib.error as e:
+                raise ValueError(f"{path}: bad EXR chunk at y = {y}: {e}") from None
+            raw = _exr_unpredict(raw)
+        if len(raw) != expected:
+            raise ValueError(f"{path}: EXR chunk at y = {y} has {len(raw)} bytes, "
+                             f"expected {expected}")
+        rows = np.frombuffer(raw, np.uint8).reshape(ny, line_bytes)
+        col = 0
+        for (c, t, _, _), width in zip(chans, widths):
+            if c in planes:
+                planes[c][y - ymin:y - ymin + ny] = (
+                    rows[:, col:col + width].copy().view(_EXR_PIXEL[t]))
+            col += width
+    if all(planes[c].dtype == np.uint32 for c in read):
+        out = [planes[c].view(np.int32) for c in read]
+    else:
+        out = [planes[c].astype(np.float32) for c in read]
+    return out[0] if len(out) == 1 else np.stack(out, axis=-1)

@@ -11,9 +11,11 @@ ks 11, PSFNet `ckpt/rf50mm/psfnet_480x640_ks11.msgpack`, AiFDepthNet from
 and DFVNet training at the full configuration of
 `configs/aber_aware_dff_dfv.yml` (bs 2, n_stack 8, 480x640, ks 11, lr 1e-4,
 DFVNet level 2 from `ckpt/dff_synth/dfvnet/depth_net_best.msgpack`), DFVNet
-levels 1, 3 and 4, the twin of `scripts/4_aber_aware_dff_dfv_synth.py`, and
-the thin-lens baseline (`configs/aber_aware_dff_synth_thinlens.yml`), on
-scenes made from the seed:
+levels 1, 3 and 4, the twin of `scripts/4_aber_aware_dff_dfv_synth.py`,
+the thin-lens baseline (`configs/aber_aware_dff_synth_thinlens.yml`), and
+the paper's own runs (`configs/aber_aware_dff_{aif,dfv}.yml`: Matterport3D
+JPEG frames -> Middlebury2014), on scenes made from the seed and the
+committed fixtures of tests/torch_assets/:
 
   device      the card, its power limit, torch and CUDA versions
   build       nvcc builds the kernels into build/aadff_tpu_torch/; ptxas'
@@ -44,7 +46,8 @@ scenes made from the seed:
               the fused kernel's diagnostic modes on a 480x640 frame, f32
               and bf16: 'mlponly', 'convonly' and pipe, each against its
               plain version, pipe against 'full'; their times split the
-              kernel into MLP and convolution
+              kernel into MLP and convolution; 'convonly' also by
+              torch.profiler, the kernel alone (profiler_us)
   train       3 train steps: render the focal stack through the fused
               kernel -> AiFDepthNet forward/backward -> Adam with a cosine
               schedule and the non-finite guard
@@ -89,12 +92,31 @@ scenes made from the seed:
               loop); one chunk of each twin (AiF, DFV) under
               configs/aber_aware_dff_synth_thinlens.yml: no B1 launch in
               training, one per validation scene
+  readers     the committed fixtures of tests/torch_assets/ against
+              their manifest (cv2's decodes): each JPEG decodes to the same
+              bytes, the progressive one is refused, each EXR gives the
+              exact values; the host library's build (g++) and the decode
+              ms of a 1280x1024 frame (median of 5)
+  paper_config
+              the paper's own configs, configs/aber_aware_dff_aif.yml and
+              configs/aber_aware_dff_dfv.yml (Matterport3D -> Middlebury2014,
+              bs 2, n_stack 8, 480x640, ks 11, lr 1e-4) through
+              train/dff_aif.py:train and train/dff_dfv.py:train on the card:
+              4 Matterport3D frames (the 1280x1024 JPEG fixtures, 16-bit
+              depth PNGs) and 2 Middlebury2014 scenes, epochs cut to 1 (2
+              passes of 2 steps, one validation).  Checks: finite losses and
+              metrics, the checkpoints, one B1 f32 launch per render.
+              Reports step_ms (CUDA events, render included), the loader's
+              wait per step and a sample's host ms (JPEG, PNG, augmentation,
+              resize)
   optics      the ray tracer on the card, both lens files
               (lenses/rf50mm.json, lenses/50mm_f2.8.json at 480x640):
               derived values, pupils, the trace of every wavelength and the
               refocus at 500 / 2,400 / 20,000 mm held to
               tests/goldens/optics_goldens.npz; psf_impl from the same
-              draws and lens scalars on the card and on the CPU; PSF sums
+              draws and lens scalars on the card and on the CPU, held on
+              the rays both keep (the kept-ray masks agree on > 99.9%;
+              the whole-PSF difference reported beside it); PSF sums
   psf_fit     the twin of scripts/1_fit_psfnet.py in this process at its
               configuration (rf50mm, 480x640, ks 11, bs 128, spp 4096, lr
               1e-4 AdamW with the cosine schedule, warm start from the
@@ -131,6 +153,8 @@ OPTICS_GOLDENS = os.path.join(ROOT, "tests", "goldens", "optics_goldens.npz")
 LENS_FILES = {"rf50mm": os.path.join(ROOT, "lenses", "rf50mm.json"),
               "50mm_f2_8": os.path.join(ROOT, "lenses", "50mm_f2.8.json")}
 PSF_GATE = os.path.join(ROOT, "PSF_GATE.json")
+ASSETS = os.path.join(ROOT, "tests", "torch_assets")
+MATTERPORT_FRAMES = ("frame_q95_420.jpg", "frame_q90_444.jpg")
 
 BS, N_STACK, H, W, KS = 2, 8, 480, 640, 11   # configs/aber_aware_dff_{synth,dfv}.yml
 LR, EPOCHS = 1e-4, 20
@@ -595,6 +619,256 @@ def run_dfv_entry(torch, gen, device, make_scenes, trainer, fused_render,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def run_readers(np):
+    """The readers phase: the committed fixtures of tests/torch_assets/
+    against their manifest (cv2's decodes, recorded on a machine with
+    OpenCV): each JPEG decodes to the same bytes, the progressive one is
+    refused, each EXR gives the exact values; the host library's build, and
+    the decode ms of each 1280x1024 frame (median of 5)."""
+    import hashlib  # noqa: PLC0415
+    import statistics  # noqa: PLC0415
+
+    from aadff_tpu_torch.utils import _host_build  # noqa: PLC0415
+    from aadff_tpu_torch.utils.image import read_exr, read_jpeg  # noqa: PLC0415
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    t = time.perf_counter()
+    built = _host_build.build()
+    fields = {"compiler": _host_build.compiler(), "built": built["built"],
+              "build_s": time.perf_counter() - t, "jpeg": {}, "exr": {}}
+    with open(os.path.join(ASSETS, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, rec in manifest["jpeg"].items():
+        path = os.path.join(ASSETS, name)
+        if rec["progressive"]:
+            try:
+                read_jpeg(path)
+                refused = None
+            except NotImplementedError as e:
+                refused = str(e)
+            fields["jpeg"][name] = {"refused": refused}
+            check(refused is not None and name in refused,
+                  f"{name}: the progressive file was not refused ({refused})")
+            continue
+        img = read_jpeg(path)
+        ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            read_jpeg(path)
+            ms.append(1e3 * (time.perf_counter() - t))
+        fields["jpeg"][name] = {"shape": list(img.shape), "equal": sha(img) == rec["sha256"],
+                                "decode_ms_median": statistics.median(ms),
+                                "decode_ms": ms}
+        check(fields["jpeg"][name]["equal"] and list(img.shape) == rec["shape"],
+              f"{name}: the decode differs from cv2's")
+    for name, rec in manifest["exr"].items():
+        out = read_exr(os.path.join(ASSETS, name))
+        ok = (sha(out) == rec["sha256"] and list(out.shape) == rec["shape"]
+              and str(out.dtype) == rec["dtype"])
+        fields["exr"][name] = {"shape": list(out.shape), "dtype": str(out.dtype),
+                               "exact": ok}
+        check(ok, f"{name}: values differ from the manifest's")
+    return fields
+
+
+def write_matterport(root, gen, device, make_scenes):
+    """Matterport3D's layout: ENTRY_TRAIN frames over 2 scenes,
+    <root>/aif/<scene>/undistorted_color_images/*.jpg (the two 1280x1024
+    fixtures, copied) and <root>/depth/<scene>/render_depth/*.png (uint16,
+    make_scenes depth x 4000)."""
+    import shutil  # noqa: PLC0415
+
+    from aadff_tpu_torch.utils.image import write_png  # noqa: PLC0415
+
+    _, depth = make_scenes(ENTRY_TRAIN, 1024, 1280, gen, device)
+    units = (depth[:, 0] * 4000).round().clamp(0, 65535).cpu().numpy().astype("uint16")
+    for i in range(ENTRY_TRAIN):
+        scene = f"scene{i // 2}"
+        rgb = os.path.join(root, "aif", scene, "undistorted_color_images")
+        dep = os.path.join(root, "depth", scene, "render_depth")
+        os.makedirs(rgb, exist_ok=True)
+        os.makedirs(dep, exist_ok=True)
+        shutil.copy(os.path.join(ASSETS, MATTERPORT_FRAMES[i % 2]),
+                    os.path.join(rgb, f"frame{i % 2}.jpg"))
+        write_png(os.path.join(dep, f"frame{i % 2}.png"), units[i])
+    return os.path.join(root, "aif"), os.path.join(root, "depth")
+
+
+def sample_host_ms(np, aif_path, depth_path):
+    """A Matterport3D training sample's host ms, step by step as
+    `Matterport3D.__getitem__` takes them: JPEG decode, PNG decode,
+    augmentation (a draw that rotates and one that does not) and the two
+    resizes to 480x640; each the median of 3."""
+    import statistics  # noqa: PLC0415
+
+    from aadff_tpu_torch.dff.dataset import auto_augment  # noqa: PLC0415
+    from aadff_tpu_torch.utils.image import imread_color, read_png, resize_hw  # noqa: PLC0415
+
+    def ms(fn):
+        out = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(out)
+
+    aif = imread_color(aif_path) / 255.0
+    depth = read_png(depth_path) / 4000
+
+    def rotates(seed):
+        """Whether auto_augment's draws from RandomState(seed) rotate: a
+        contrast draw (two more on success), two flips, then the rotation."""
+        r = np.random.RandomState(seed)
+        if r.rand() > 0.5:
+            r.rand(), r.rand()
+        r.rand(), r.rand()
+        return r.rand() > 0.5
+
+    seeds = {}
+    for seed in range(50):
+        seeds.setdefault(rotates(seed), seed)
+    return {
+        "jpeg_decode_ms": ms(lambda: imread_color(aif_path)),
+        "png_decode_ms": ms(lambda: read_png(depth_path)),
+        "augment_rotating_ms": ms(lambda: auto_augment(
+            aif, depth, np.random.RandomState(seeds[True]))),
+        "augment_not_rotating_ms": ms(lambda: auto_augment(
+            aif, depth, np.random.RandomState(seeds[False]))),
+        "resize_ms": ms(lambda: (resize_hw(aif.astype(np.float32), (H, W)),
+                                 resize_hw(depth.astype(np.float32), (H, W)))),
+    }
+
+
+class LogRecords:
+    """A logging handler that keeps the messages of the root logger's
+    INFO records while it is attached."""
+
+    def __init__(self):
+        import logging  # noqa: PLC0415
+
+        self.messages = []
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+        self.root = logging.getLogger()
+
+    def __enter__(self):
+        import logging  # noqa: PLC0415
+
+        self.level = self.root.level
+        self.root.setLevel(logging.INFO)
+        self.root.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.root.removeHandler(self.handler)
+        self.root.setLevel(self.level)
+
+
+def run_paper_config(torch, np, gen, device, make_scenes, fused_render, mlp_psf,
+                     family):
+    """The paper_config phase for one family ("aif" or "dfv"):
+    configs/aber_aware_dff_<family>.yml as the paper runs it (Matterport3D
+    -> Middlebury2014, bs 2, n_stack 8, 480x640, ks 11, lr 1e-4), its data
+    paths pointed at a Matterport3D layout of ENTRY_TRAIN frames (the
+    1280x1024 JPEG fixtures, 16-bit depth) and a Middlebury2014 layout of
+    ENTRY_VAL scenes, and its epochs cut to 1 (two passes of 2 steps around
+    one validation); `train/dff_<family>.py:train` on the card in this
+    process.  Checks: finite losses and metrics, the checkpoints, and one B1
+    f32 launch per render (train steps and validation scenes).  Reports the
+    steps' ms (CUDA events, render included), the loader's wait per step
+    and a sample's host ms split.  Returns the phase's fields."""
+    import math  # noqa: PLC0415
+    import re as re_  # noqa: PLC0415
+    import shutil  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    from aadff_tpu_torch.train import dff_aif, dff_dfv  # noqa: PLC0415
+    from aadff_tpu_torch.train.trainer import VAL_METRICS, StepTimer  # noqa: PLC0415
+    from aadff_tpu_torch.utils.config import load_config  # noqa: PLC0415
+
+    module = {"aif": dff_aif, "dfv": dff_dfv}[family]
+    name = f"aber_aware_dff_{family}.yml"
+    tmp = tempfile.mkdtemp(prefix=f"aadff_paper_{family}_")
+    try:
+        aif_dir, depth_dir = write_matterport(os.path.join(tmp, "mp"), gen,
+                                              device, make_scenes)
+        val_dir = write_scene_dirs(os.path.join(tmp, "Middlebury2014"),
+                                   *make_scenes(ENTRY_VAL, H, W, gen, device))
+        with open(os.path.join(ROOT, "configs", name)) as f:
+            text = f.read()
+        for old, new in (("'./dataset/Matterport3D/train/aif'", repr(aif_dir)),
+                         ("'./dataset/Matterport3D/train/depth'", repr(depth_dir)),
+                         ("'./dataset/Middlebury2014'", repr(val_dir)),
+                         ("'./lenses/", repr(ROOT + "/lenses/")[:-1]),
+                         ("'./ckpt/", repr(ROOT + "/ckpt/")[:-1])):
+            check(old in text, f"{name} has no {old}")
+            text = text.replace(old, new)
+        config = os.path.join(tmp, name)
+        with open(config, "w") as f:
+            f.write(text)
+        args = load_config(config)
+        check((args["train"]["dataset"], args["test"]["dataset"], args["bs"],
+               args["n_stack"], tuple(args["res"]), args["ks"], float(args["lr"]))
+              == ("Matterport3D", "Middlebury2014", BS, N_STACK, (H, W), KS, LR),
+              f"{name}: {args}")
+        args["epochs"] = 1
+        args["results_dir"] = os.path.join(tmp, "run")
+        host = sample_host_ms(np, os.path.join(aif_dir, "scene0", "undistorted_color_images",
+                                               "frame0.jpg"),
+                              os.path.join(depth_dir, "scene0", "render_depth", "frame0.png"))
+        timer = StepTimer(device)
+        np.random.seed(126)  # as the entry's config() seeds the augmentation
+        torch.cuda.synchronize()
+        reset_counts(fused_render, mlp_psf)
+        t = time.perf_counter()
+        with LogRecords() as log:
+            state = module.train(args, device=str(device), timer=timer)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches = dict(fused_render.variant_launches)
+        mlp_launches = mlp_psf.launches
+        step_ms = timer.step_ms()
+        steps = int(state.step)
+        del state
+
+        losses = [float(m.group(1)) for m in map(
+            re_.compile(r"epoch \d+: loss (\S+)").fullmatch, log.messages) if m]
+        metrics = {}
+        for m in map(re_.compile(r"Avg_(\w+)\(\d+\): (\S+)").fullmatch, log.messages):
+            if m:
+                metrics[m.group(1)] = float(m.group(2))
+        keys = VAL_METRICS if family == "aif" else dff_dfv.METRICS
+        renders = steps + ENTRY_VAL
+        fields = {
+            "config": f"configs/{name}", "data": {
+                "train": f"Matterport3D, {ENTRY_TRAIN} JPEG frames 1024x1280 "
+                         f"({', '.join(MATTERPORT_FRAMES)})",
+                "val": f"Middlebury2014 layout, {ENTRY_VAL} scenes {H}x{W}",
+                "res": [H, W]},
+            "epochs": 1, "steps": steps, "epoch_losses": losses, "val": metrics,
+            "step_ms": step_ms, "step_ms_after_first": step_ms[1:],
+            "loader_wait_ms": timer.waits, "run_s": run_s,
+            "sample_host_ms": host, "launches": launches,
+            "mlp_psf_launches": mlp_launches, "expected_renders": renders,
+            "checkpoints": sorted(f for f in os.listdir(args["results_dir"])
+                                  if f.endswith(".pt")),
+        }
+        check(steps == 2 * (ENTRY_TRAIN // BS) and len(step_ms) == steps,
+              f"{name}: {steps} steps, {len(step_ms)} timed")
+        check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              f"{name}: epoch losses {losses}")
+        check(set(keys) <= set(metrics) and all(math.isfinite(metrics[k]) for k in keys),
+              f"{name}: metrics {metrics}")
+        check("depth_net_last.pt" in fields["checkpoints"], f"{name}: no checkpoint")
+        check(launches == {"stack/f32/full": renders} and mlp_launches == 0,
+              f"{name}: launches {launches}, expected {renders} stack/f32/full")
+        return fields
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def run_dfv_levels(torch, gen, device, make_scenes, lens, trainer,
                    fused_render, mlp_psf):
     """The dfv_levels phase: DFVNet levels 1, 3 and 4 (use_diff 1) from a
@@ -784,7 +1058,8 @@ def run_optics(torch, np, device):
     from aadff_tpu_torch.constants import WAVE_RGB  # noqa: PLC0415
     from aadff_tpu_torch.optics import Lens, make_rays  # noqa: PLC0415
     from aadff_tpu_torch.optics.psf import (draw_psf, lens_scalars,  # noqa: PLC0415
-                                            psf_impl)
+                                            psf_centre, psf_from_rays,
+                                            psf_impl, psf_rays)
 
     g = np.load(OPTICS_GOLDENS)
     fields = {"tol": {"derived": DERIVED_TOL, "trace": TRACE_TOL,
@@ -830,7 +1105,13 @@ def run_optics(torch, np, device):
             for name, tol in REFOCUS_TOL.items():
                 check(rec[name] < tol, f"{key} refocus {depth} {name}: {rec[name]:.3g}")
 
-    # psf_impl from the same draws and lens scalars, on the card and the CPU
+    # psf_impl from the same draws and lens scalars, on the card and the
+    # CPU.  A ray that lands at the PSF window's edge (or grazes a stop)
+    # may be kept on one device and cut on the other, whose f32 roundings
+    # differ, and one such ray of 4,096 moves a tap by ~2.5e-4.  So, as in
+    # the trace check, the kept-ray masks must agree on > 99.9%, and the
+    # PSFs are held to PSF_CARD_VS_CPU on the rays that both keep; the
+    # whole-PSF difference is reported beside it.
     on_card = Lens(LENS_FILES["rf50mm"], sensor_res=(H, W), device=device)
     on_cpu = Lens(LENS_FILES["rf50mm"], sensor_res=(H, W), device="cpu")
     on_cpu.refocus(-2400.0)
@@ -840,15 +1121,44 @@ def run_optics(torch, np, device):
                         [-0.9, 0.3, -800.0], [0.98, 0.98, -20000.0],
                         [-0.3, -0.7, -1200.0], [0.1, 0.9, -300.0]])
     rng = tuple(range(len(on_card.metas)))
-    card = psf_impl(on_card.params, on_card.metas, pts.to(device),
-                    type(draws)(*(t.to(device) for t in draws)), KS, 0.589, True,
-                    rng, *scalars)
-    cpu = psf_impl(on_cpu.params, on_cpu.metas, pts, draws, KS, 0.589, True, rng,
-                   *scalars)
-    fields["psf_card_vs_cpu_max_abs"] = (card.cpu() - cpu).abs().max().item()
+    card_args = (on_card.params, on_card.metas, pts.to(device),
+                 type(draws)(*(t.to(device) for t in draws)))
+    cpu_args = (on_cpu.params, on_cpu.metas, pts, draws)
+    card = psf_impl(*card_args, KS, 0.589, True, rng, *scalars)
+    cpu = psf_impl(*cpu_args, KS, 0.589, True, rng, *scalars)
+    fields["psf_card_vs_cpu_whole_max_abs"] = (card.cpu() - cpu).abs().max().item()
     fields["psf_sum_err"] = (card.sum((-1, -2)) - 1).abs().max().item()
+
+    sensor_w, sensor_h, ps = scalars[5:]
+    ps32 = torch.tensor(ps, dtype=torch.float32)
+    window = (KS / 2 - 0.5) * ps32 - 0.01 * ps32   # as forward_integral
+    (ray_d, chief_d), (ray_h, chief_h) = (
+        psf_rays(*args, 0.589, True, rng, *scalars[:7]) for args in (card_args, cpu_args))
+    chief_keep = (chief_d.ra.cpu() > 0) & (chief_h.ra > 0)
+    centre_d = psf_centre(chief_d._replace(ra=chief_keep.float().to(device)),
+                          pts, sensor_w, sensor_h)
+    centre_h = psf_centre(chief_h._replace(ra=chief_keep.float()), pts, sensor_w,
+                          sensor_h)
+
+    def kept(ray, centre):
+        shift = -ray.o[..., :2] - centre
+        return ((ray.ra > 0) & (shift.abs() < window.to(ray.o.device)).all(-1)).cpu()
+
+    keep_d, keep_h = kept(ray_d, centre_d), kept(ray_h, centre_h)
+    both = (keep_d & keep_h).float()
+    joint_d = psf_from_rays(ray_d._replace(ra=both.to(device)), centre_d, KS, ps)
+    joint_h = psf_from_rays(ray_h._replace(ra=both), centre_h, KS, ps)
+    fields["psf_mask_agree"] = {
+        "rays": float((keep_d == keep_h).float().mean()),
+        "chief_rays": float(((chief_d.ra.cpu() > 0) == (chief_h.ra > 0)).float().mean())}
+    fields["psf_rays_kept"] = {"card": int(keep_d.sum()), "cpu": int(keep_h.sum()),
+                               "both": int(both.sum())}
+    fields["psf_card_vs_cpu_max_abs"] = (joint_d.cpu() - joint_h).abs().max().item()
+    for name, agree in fields["psf_mask_agree"].items():
+        check(agree > 0.999, f"psf_impl {name}: masks agree on {agree}")
     check(fields["psf_card_vs_cpu_max_abs"] <= PSF_CARD_VS_CPU,
-          f"psf_impl card vs CPU {fields['psf_card_vs_cpu_max_abs']:.3g}")
+          f"psf_impl card vs CPU on the rays both keep "
+          f"{fields['psf_card_vs_cpu_max_abs']:.3g}")
     check(fields["psf_sum_err"] <= ROWSUM_TOL, f"PSF sums {fields['psf_sum_err']:.3g}")
     return fields
 
@@ -878,6 +1188,23 @@ def profile_fit_step(torch, net, opt, foc_z, state):
             end = b
     n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in kernels)
     return len(kernels), n_kernels, busy / 1e3, wall_ms
+
+
+def kernel_device_us(torch, fn, reps, name_part):
+    """`reps` calls of fn under torch.profiler: (mean device microseconds of
+    the kernels whose name holds `name_part`, their count).  The kernel
+    alone, where CUDA events around the call also time the launch."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name_part in e.name]
+    return (sum(spans) / len(spans) if spans else None), len(spans)
 
 
 def run_psf_fit(torch, np, gen, device, make_scenes, fused_render, mlp_psf):
@@ -1050,6 +1377,10 @@ def main():
                   and rec.get("spill_loads") == 0, f"{name}: ptxas {rec}")
             check("C7512" not in rec["warnings"],
                   f"{name}: ptxas serialized its wgmma (C7512): {rec}")
+
+    # ---- the image readers: JPEG (host C++), EXR -------------------------
+    t0 = time.perf_counter()
+    phase("readers", t0, **run_readers(np))
 
     # ---- kernel against its plain version, TF32 off for both -------------
     t0 = time.perf_counter()
@@ -1331,6 +1662,10 @@ def main():
         rec["bound_ms"], rec["bound_by"] = render_bound_ms(
             net.model, 1, 1, 3, H, W, KS, dt, mode)
         rec["launches"] = split_counts.get(name, 0)
+        if mode == "convonly":  # ~3 us of work: the event time is the launch's
+            rec["profiler_us"], rec["profiler_kernels"] = kernel_device_us(
+                torch, lambda: fused_render.fused_psf_render(*args), 20,
+                "fused_psf_render")
         split[name] = rec
     del outs
     full_ms = {"f32": frame_ms, "bf16": frame16_ms}
@@ -1342,6 +1677,9 @@ def main():
                                    "bf16_max_abs": BF16_MAX_ABS,
                                    "bf16_mean_abs": BF16_MEAN_ABS},
           modes=split, full_ms=full_ms, shares=shares)
+    check(split["frame/-/convonly"]["profiler_kernels"] == 20,
+          f"convonly under the profiler: {split['frame/-/convonly']['profiler_kernels']} "
+          f"kernels of 20 launches")
     for name, rec in split.items():
         check(rec["launches"] == 1, f"{name}: {rec['launches']} launches")
         if "/bf16/" in name:
@@ -1521,6 +1859,16 @@ def main():
                                                make_scenes, fused_render, mlp_psf)
     phase("thinlens", t0, **thinlens)
 
+    # ---- the paper's own configs: Matterport3D JPEGs -> Middlebury2014,
+    # through train/dff_aif.py and train/dff_dfv.py ------------------------
+    paper_launches = {}
+    for family in ("aif", "dfv"):
+        t0 = time.perf_counter()
+        paper = run_paper_config(torch, np, gen, device, make_scenes, fused_render,
+                                 mlp_psf, family)
+        paper_launches[family] = paper["launches"]["stack/f32/full"]
+        phase("paper_config", t0, family=family, **paper)
+
     # ---- the lens ray tracer and PSFNet fitting --------------------------
     t0 = time.perf_counter()
     phase("optics", t0, **run_optics(torch, np, device))
@@ -1560,6 +1908,7 @@ def main():
               entry_launches=entry_launches,
               dfv_entry_launches=dfv_entry_launches,
               thinlens_launches=thinlens_launches,
+              paper_config_launches=paper_launches,
               psf_fit_launches=fit_launches),
         entry("fused_psf_render_bf16", render_src, b1,
               bf16_launches["stack/bf16/full"], b1_16["stack_2x8x3x480x640"],
@@ -1595,6 +1944,7 @@ def main():
             rec["plain_ms"], (rec["bound_ms"], rec["bound_by"]),
             variant=name, **({"vs_full_max_abs": rec["vs_full_max_abs"]}
                              if "vs_full_max_abs" in rec else {}),
+            **({"profiler_us": rec["profiler_us"]} if "profiler_us" in rec else {}),
             **(bf16_extra("fused_psf_render_wg<1>" if "mlponly" in name
                           else "fused_psf_render_wg<0>") if "/bf16/" in name else {})))
     emit({"kernels": kernels})

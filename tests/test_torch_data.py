@@ -11,6 +11,7 @@ port's resize against cv2's, tests/test_torch_io.py).  JAX rotates with its
 native bilinear op when native/libaadff_io.so loads; these tests hold the
 port to JAX's scipy path by switching the native op off, in the test only.
 """
+import importlib.util
 import os
 
 import cv2
@@ -27,6 +28,12 @@ from aadff_tpu_torch.dff import dataset, factory, metrics
 from aadff_tpu_torch.dff.focus import select_focus_dist
 from aadff_tpu_torch.utils import flax_msgpack
 from aadff_tpu_torch.utils.config import load_config
+
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_assets")
+_spec = importlib.util.spec_from_file_location(
+    "make_assets", os.path.join(ASSETS, "make_assets.py"))
+assets = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(assets)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PSFNET_CKPT = os.path.join(REPO, "ckpt", "rf50mm", "psfnet_480x640_ks11.msgpack")
@@ -174,7 +181,8 @@ def test_auto_augment_matches_jax(scipy_rotate):
 def test_matterport3d_matches_jax(tmp_path, scipy_rotate):
     """The layout of tests/test_datasets_full.py:9.  The colour files hold
     PNG data under their .jpg names (OpenCV and the port both go by the
-    file's signature): the port decodes no JPEG."""
+    file's signature); then a real JPEG in their place decodes as OpenCV
+    decodes it."""
     rgb = tmp_path / "rgb" / "scene1" / "undistorted_color_images"
     dep = tmp_path / "dep" / "scene1" / "render_depth"
     rgb.mkdir(parents=True)
@@ -196,9 +204,57 @@ def test_matterport3d_matches_jax(tmp_path, scipy_rotate):
             np.random.seed(seed)
             # float32 depth maps (to 3 m) resized: within 2e-6 (test_torch_io)
             _assert_items(a, ref[0], 2e-6)
-    cv2.imwrite(str(rgb / "img0.jpg"), np.zeros((40, 48, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        dataset.Matterport3D(*args, resize=(32, 32))[0]
+    cv2.imwrite(str(rgb / "img0.jpg"), rng.integers(0, 256, (40, 48, 3), dtype=np.uint8))
+    ours = dataset.Matterport3D(*args, resize=(40, 48), train=False)[0]
+    ref = jax_dataset.Matterport3D(*args, resize=(40, 48), train=False)[0]
+    _assert_items(ours, ref, 0)
+    np.testing.assert_array_equal(
+        ours[0], (cv2.imread(str(rgb / "img0.jpg"))[..., ::-1] / 255.0)
+        .astype(np.float32).transpose(2, 0, 1))
+
+
+def _jpeg_frame(seed, h, w):
+    """A JPEG-like frame: gratings and noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    base = np.stack([128 + 90 * np.sin(xx / 6.0 + c) * np.cos(yy / 9.0 - c)
+                     for c in range(3)], -1)
+    return np.clip(base + rng.normal(0, 20, base.shape), 0, 255).astype(np.uint8)
+
+
+def _matterport(root, scenes=2, frames=2, h=48, w=60, seed=0):
+    """Matterport3D's layout with real JPEGs (4:2:0, q95, as cv2 writes
+    them) and 16-bit depth PNGs in units of 1/4000 m: (rgb dir, depth
+    dir)."""
+    rng = np.random.default_rng(seed)
+    for s in range(scenes):
+        rgb = root / "aif" / f"scene{s}" / "undistorted_color_images"
+        dep = root / "depth" / f"scene{s}" / "render_depth"
+        rgb.mkdir(parents=True)
+        dep.mkdir(parents=True)
+        for i in range(frames):
+            cv2.imwrite(str(rgb / f"f{i}.jpg"), _jpeg_frame(10 * s + i, h, w),
+                        [cv2.IMWRITE_JPEG_QUALITY, 95])
+            depth = rng.uniform(0.6, 3.0, (h, w)) * 4000
+            depth[:, :3] = 0
+            cv2.imwrite(str(dep / f"f{i}.png"), depth.astype(np.uint16))
+    return str(root / "aif"), str(root / "depth")
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_matterport3d_jpegs_match_jax(tmp_path, scipy_rotate, train):
+    """Real JPEG colour frames, resized and (train) augmented: equal to
+    JAX's items within 2e-6 (float32 depth maps resized, test_torch_io)."""
+    args = _matterport(tmp_path)
+    ours = dataset.Matterport3D(*args, resize=(32, 40), train=train)
+    ref = jax_dataset.Matterport3D(*args, resize=(32, 40), train=train)
+    assert ours.imgs == ref.imgs and ours.depths == ref.depths and len(ours) == 4
+    for i in range(len(ref)):
+        for seed in range(3 if train else 1):
+            np.random.seed(seed)
+            a = ours[i]
+            np.random.seed(seed)
+            _assert_items(a, ref[i], 2e-6)
 
 
 def test_flyingthings3d_matches_jax(tmp_path, scipy_rotate):
@@ -235,6 +291,71 @@ def test_flyingthings3d_matches_jax(tmp_path, scipy_rotate):
                     random.seed(seed)
                     np.random.seed(seed)
                     _assert_items(a, ref[i], 2e-6)
+
+
+def _write_pfm(path, disp):
+    with open(path, "wb") as f:
+        f.write(f"Pf\n{disp.shape[1]} {disp.shape[0]}\n-1.0\n".encode())
+        np.flipud(disp).astype("<f4").tofile(f)
+
+
+@pytest.mark.parametrize("ptype,compression", [(2, 3), (1, 2), (2, 0)],
+                         ids=["float-zip", "half-zips", "float-none"])
+def test_flyingthings3d_reads_disp_exr_as_jax_reads_it(tmp_path, scipy_rotate,
+                                                       ptype, compression):
+    """The port reads disp.exr (a Y channel, as OpenCV writes one-channel
+    EXRs); JAX, whose OpenCV here has no EXR codec, reads a disp.pfm of the
+    same values in a twin directory.  AiF and focal-stack modes."""
+    rng = np.random.default_rng(5)
+    for root in ("exr", "pfm"):
+        for k in range(2):
+            (tmp_path / root / f"scene{k}").mkdir(parents=True)
+    for k in range(2):
+        disp = rng.uniform(10, 40, (32, 40)).astype(np.float16 if ptype == 1 else np.float32)
+        assets.write_exr(str(tmp_path / "exr" / f"scene{k}" / "disp.exr"), {"Y": disp},
+                         compression)
+        _write_pfm(tmp_path / "pfm" / f"scene{k}" / "disp.pfm", disp.astype(np.float32))
+        images = {"AiF.png": rng.integers(0, 256, (32, 40, 3), dtype=np.uint8)}
+        for fd in ("10.0", "20.0", "30.0"):
+            images[f"{fd}.png"] = rng.integers(0, 256, (32, 40, 3), dtype=np.uint8)
+        for root in ("exr", "pfm"):
+            for name, img in images.items():
+                cv2.imwrite(str(tmp_path / root / f"scene{k}" / name), img)
+    for fs_num in (0, 2):
+        for train in (False, True):
+            ours = dataset.FlyingThings3D(str(tmp_path / "exr"), resize=(24, 32),
+                                          train=train, fs_num=fs_num)
+            ref = jax_dataset.FlyingThings3D(str(tmp_path / "pfm"), resize=(24, 32),
+                                             train=train, fs_num=fs_num)
+            assert sorted(ours.scenes) == sorted(ref.scenes)
+            for i in range(len(ref)):
+                j = ref.scenes.index(ours.scenes[i])
+                import random
+                random.seed(i)
+                np.random.seed(i)
+                a = ours[i]
+                random.seed(i)
+                np.random.seed(i)
+                _assert_items(a, ref[j], 2e-6)
+
+
+def test_realworld_jpg_captures_match_jax(tmp_path):
+    """.JPG captures (one of them EXIF-rotated, which both readers turn
+    upright) and .png frames in one stack, kept in OpenCV's BGR order."""
+    scene = tmp_path / "capture1"
+    scene.mkdir()
+    (scene / "IMG_dist800_a.JPG").write_bytes(
+        cv2.imencode(".jpg", _jpeg_frame(0, 36, 44))[1].tobytes())
+    # stored 44 x 36, turned upright (36 x 44) by its orientation 6
+    (scene / "IMG_dist1600_a.JPG").write_bytes(assets.with_exif(
+        cv2.imencode(".jpg", _jpeg_frame(1, 44, 36))[1].tobytes(), 6))
+    cv2.imwrite(str(scene / "IMG_dist3200_b.png"), _jpeg_frame(5, 36, 44))
+    for resize, atol in (((36, 44), 0), ((24, 32), 1e-6)):
+        ours = dataset.RealWorld(str(tmp_path), resize=resize)[0]
+        ref = jax_dataset.RealWorld(str(tmp_path), resize=resize)[0]
+        _assert_items(ours, ref, atol)
+        assert ours[0].shape == (3, 3) + resize
+        np.testing.assert_allclose(ours[2], [1.6, 0.8, 3.2])  # sorted names
 
 
 def test_realworld_matches_jax(tmp_path):
@@ -344,3 +465,36 @@ def test_get_dataset_matches_jax(tmp_path):
         for fn in (factory.get_dataset, jax_factory.get_dataset):
             with pytest.raises(NotImplementedError, match=name):
                 fn(args)
+
+
+def test_get_dataset_paper_branches_match_jax(tmp_path, scipy_rotate):
+    """The paper's configs (Matterport3D -> Middlebury2014), FlyingThings3D
+    and RealWorld through both factories: the same classes, files and
+    items."""
+    aif_dir, depth_dir = _matterport(tmp_path / "mp", scenes=1)
+    mb = _middlebury(tmp_path / "mb", 2)
+    ft = tmp_path / "ft" / "scene0"
+    ft.mkdir(parents=True)
+    rng = np.random.default_rng(7)
+    _write_pfm(ft / "disp.pfm", rng.uniform(10, 40, (32, 40)).astype(np.float32))
+    cv2.imwrite(str(ft / "AiF.png"), rng.integers(0, 256, (32, 40, 3), dtype=np.uint8))
+    rw = tmp_path / "rw" / "capture0"
+    rw.mkdir(parents=True)
+    cv2.imwrite(str(rw / "IMG_dist900_a.JPG"), _jpeg_frame(3, 32, 40))
+    for config in ("aber_aware_dff_aif.yml", "aber_aware_dff_dfv.yml"):
+        args = load_config(os.path.join(REPO, "configs", config))
+        args.update(res=(24, 32), train_aif_dir=aif_dir, train_depth_dir=depth_dir,
+                    Middlebury2014_val=mb, FlyingThings3D_train=str(tmp_path / "ft"),
+                    RealWorld_val=str(tmp_path / "rw"))
+        cases = [("Matterport3D", "Middlebury2014")]
+        if config.endswith("aif.yml"):
+            cases.append(("FlyingThings3D", "RealWorld"))
+        for train_name, test_name in cases:
+            args["train"]["dataset"], args["test"]["dataset"] = train_name, test_name
+            ours, ref = factory.get_dataset(args), jax_factory.get_dataset(args)
+            for a, b in zip(ours, ref):
+                assert type(a).__name__ == type(b).__name__ and len(a) == len(b) > 0
+                np.random.seed(1)
+                item = a[0]
+                np.random.seed(1)
+                _assert_items(item, b[0], 2e-6)

@@ -24,6 +24,9 @@ def test_importing_the_port_loads_no_jax():
     for twin in ("aber_aware_dff_synth", "aber_aware_dff_dfv_synth",
                  "fit_psfnet", "psf_gate"):
         assert f"aadff_tpu_torch.scripts.{twin}" in modules
+    # the readers and the host library's builder (JPEG, EXR)
+    for mod in ("aadff_tpu_torch.utils.image", "aadff_tpu_torch.utils._host_build"):
+        assert mod in modules
     code = (f"import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("

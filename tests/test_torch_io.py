@@ -209,9 +209,13 @@ def test_png_written_by_the_port_reads_back_in_cv2(tmp_path):
 
 def test_png_rejects_what_it_does_not_read(tmp_path):
     rgb = np.zeros((8, 8, 3), np.uint8)
-    cv2.imwrite(str(tmp_path / "x.jpg"), rgb)
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    jpg = np.random.default_rng(7).integers(0, 256, (13, 21, 3), dtype=np.uint8)
+    cv2.imwrite(str(tmp_path / "x.jpg"), jpg)
+    # a JPEG is not a PNG, and imread_color decodes it as OpenCV does
+    with pytest.raises(ValueError, match="not a PNG file .a JPEG"):
         image.read_png(str(tmp_path / "x.jpg"))
+    np.testing.assert_array_equal(image.imread_color(str(tmp_path / "x.jpg")),
+                                  cv2.imread(str(tmp_path / "x.jpg"))[..., ::-1])
     path = str(tmp_path / "i.png")
     image.write_png(path, rgb)
     data = bytearray(open(path, "rb").read())

@@ -134,10 +134,10 @@ def test_get_training_data_matches_jax(jnet):
 def test_fit_steps_match_jax(jnet):
     """3 fit iterations from the checkpoint with JAX's draws and focus
     state (bs 8, spp 256, lr 1e-4, schedule over 10 iterations): losses
-    within rtol 1e-4 (measured 2.0e-5, 6.9e-5, 3.1e-6), and each
-    iteration's parameter update against optax.adamw's within 0.2 lr, and
-    within 1e-3 lr on all but 2% of the weights (measured: 0.052 lr, and
-    0.58% of the weights above 1e-3 lr at step 1).  A weight whose gradient
+    within rtol 1e-4 (measured 1.3e-5, 9.2e-5, 2.3e-6), and each
+    iteration's parameter update against optax.adamw's within 0.1 lr, and
+    within 1e-3 lr on all but 2% of the weights (measured: 0.056 lr, and
+    0.49% of the weights above 1e-3 lr at step 1).  A weight whose gradient
     is near Adam's eps moves by a fraction |g| / (|g| + eps) of lr, and
     the labels' f32 differences (tests/test_torch_psf.py) move g; the
     optimizer alone is held to optax at rtol 1e-6 below."""
@@ -168,7 +168,7 @@ def test_fit_steps_match_jax(jnet):
         print(f"measured: fit step {i + 1} loss rel {rel:.3g}, update diff / lr "
               f"max {dev.max():.3g}, share > 1e-3 {np.mean(dev > 1e-3):.3g}")
         assert rel <= 1e-4
-        assert dev.max() <= 0.2 and np.mean(dev > 1e-3) <= 0.02
+        assert dev.max() <= 0.1 and np.mean(dev > 1e-3) <= 0.02
     assert int(opt.count) == 3 and int(opt.schedule_count) == 3
 
 
@@ -254,8 +254,8 @@ def jax_gate(jnet):
 def test_gate_matches_jax_on_the_same_draws(jnet, jax_gate):
     """The gate on 3 foci x 2 z at spp 512: the port's psf_score from JAX's
     focus states and per-combination draws against JAX's score: within
-    1e-4 relative on L1 (measured 3.1e-5) and 1e-3 on L2 (measured
-    8.9e-5), the PSFs' f32 differences of tests/test_torch_psf.py
+    5e-5 relative on L1 (measured 1.8e-5) and 2.5e-4 on L2 (measured
+    7.7e-5), the PSFs' f32 differences of tests/test_torch_psf.py
     (PSF_IMPL_TOL) averaged over the lattice."""
     foc_subset, n_z, _, (l1_ref, l2_ref), draws = jax_gate
     net = _net()
@@ -265,8 +265,8 @@ def test_gate_matches_jax_on_the_same_draws(jnet, jax_gate):
     l1, l2 = net.psf_score(states, fi, zs, foc_zs, draws)
     print(f"measured: gate same draws L1 rel {abs(l1 - l1_ref) / l1_ref:.3g}, "
           f"L2 rel {abs(l2 - l2_ref) / l2_ref:.3g}")
-    assert abs(l1 - l1_ref) <= 1e-4 * l1_ref
-    assert abs(l2 - l2_ref) <= 1e-3 * l2_ref
+    assert abs(l1 - l1_ref) <= 5e-5 * l1_ref
+    assert abs(l2 - l2_ref) <= 2.5e-4 * l2_ref
 
 
 def test_gate_fresh_draws_near_jax(jax_gate):

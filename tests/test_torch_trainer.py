@@ -20,7 +20,7 @@ from aadff_tpu.models.aifnet import AiFDepthNet as JaxAiFDepthNet
 from aadff_tpu.psfnet import PSFNet as JaxPSFNet
 from aadff_tpu.train import trainer as jax_trainer
 from aadff_tpu_torch.models.aifnet import AiFDepthNet
-from aadff_tpu_torch.models.convert import load_flax_aifnet
+from aadff_tpu_torch.models.convert import aifnet_state_from_flax, load_flax_aifnet
 from aadff_tpu_torch.psfnet.psfnet import PSFNet
 from aadff_tpu_torch.train import trainer
 
@@ -33,30 +33,53 @@ LR, DECAY_STEPS = 1e-4, 5
 B, S, H, W = 1, 4, 64, 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Test workers share the CPU: torch's full thread pool in each of them
+    oversubscribes it, and a CPU train step then runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     """The checkpoint as a JAX TrainState factory and one jitted train step
-    (D_FS), shared by the trajectory and whole-slice tests."""
+    (D_FS), shared by the trajectory and whole-slice tests; with
+    (lr, decay steps), a factory and step of that schedule."""
     with open(AIF_CKPT, "rb") as f:
         v = msgpack_restore(f.read())
     model = JaxAiFDepthNet(n_stack=S)
-    optimizer = optax.adam(optax.cosine_decay_schedule(LR, DECAY_STEPS,
-                                                       alpha=0.0))
 
-    def fresh_state():
-        params = jax.tree.map(jnp.asarray, v["params"])
-        return jax_trainer.TrainState(
-            params=params, batch_stats=jax.tree.map(jnp.asarray, v["batch_stats"]),
-            opt_state=optimizer.init(params), step=jnp.zeros((), jnp.int32))
+    def side(lr=LR, decay_steps=DECAY_STEPS):
+        optimizer = optax.adam(optax.cosine_decay_schedule(lr, decay_steps,
+                                                           alpha=0.0))
 
-    step = jax_trainer.make_aif_train_step(model, optimizer, "D_FS")
-    return fresh_state, step
+        def fresh_state():
+            params = jax.tree.map(jnp.asarray, v["params"])
+            return jax_trainer.TrainState(
+                params=params,
+                batch_stats=jax.tree.map(jnp.asarray, v["batch_stats"]),
+                opt_state=optimizer.init(params), step=jnp.zeros((), jnp.int32))
+
+        return fresh_state, jax_trainer.make_aif_train_step(model, optimizer, "D_FS")
+
+    return side
 
 
-def _torch_state():
+def _torch_state(lr=LR, decay_steps=DECAY_STEPS):
     net = AiFDepthNet()
     net.load_state_dict(load_flax_aifnet(AIF_CKPT)[0])
-    return trainer.create_train_state(net, LR, DECAY_STEPS)
+    return trainer.create_train_state(net, lr, decay_steps)
+
+
+def _torch_stats_of(jstate):
+    """The BatchNorm statistics of a JAX train state as the port names them."""
+    sd = aifnet_state_from_flax({"params": jax.tree.map(np.asarray, jstate.params),
+                                 "batch_stats": jax.tree.map(np.asarray,
+                                                             jstate.batch_stats)})
+    return {k: v for k, v in sd.items() if "running" in k}
 
 
 def _batches(n, seed):
@@ -107,22 +130,76 @@ def test_adam_matches_optax():
     assert int(opt.count) == 3
 
 
-def test_train_trajectory_matches_jax(jax_side):
-    """Three steps from the same converted init on identical pre-rendered
-    batches: the loss trajectory agrees within rtol 1e-3."""
-    fresh_state, jax_step = jax_side
+# (steps, lr, cosine decay steps, the step whose batch is NaN, loss rtol):
+# three steps as PR 4 held them, and the ten of
+# tests/test_trajectory_equivalence.py:33 (lr 1e-3, the schedule over the
+# 10 steps, the guard skipping step 4) on one device in both packages,
+# held at three times the largest deviation measured (2.1e-4 at step 10).
+TRAJECTORIES = {"3": (3, LR, DECAY_STEPS, None, 1e-3),
+                "10": (10, 1e-3, 10, 4, 3.5e-3)}
+
+
+def _stats_deviation(state, jstate):
+    """The largest deviation of a BatchNorm statistic between the port's and
+    JAX's states, over its tensor's largest value."""
+    ref = _torch_stats_of(jstate)
+    return max(float(np.abs(v.numpy() - ref[k].numpy()).max()
+                     / max(np.abs(ref[k].numpy()).max(), 1e-6))
+               for k, v in state.model.state_dict().items() if "running" in k)
+
+
+def _movement(state, jstate, start):
+    """(cosine, divergence / movement) of the two packages' parameter
+    movements from `start`, the statistic of
+    tests/test_trajectory_equivalence.py:125-140."""
+    ref = aifnet_state_from_flax({"params": jax.tree.map(np.asarray, jstate.params),
+                                  "batch_stats": jax.tree.map(np.asarray,
+                                                              jstate.batch_stats)})
+    names = [n for n, _ in state.model.named_parameters()]
+    ours = np.concatenate([(state.model.state_dict()[n] - start[n]).numpy().ravel()
+                           for n in names])
+    theirs = np.concatenate([(ref[n] - start[n]).numpy().ravel() for n in names])
+    cos = ours @ theirs / (np.linalg.norm(ours) * np.linalg.norm(theirs))
+    return float(cos), float(np.linalg.norm(ours - theirs) / np.linalg.norm(theirs))
+
+
+@pytest.mark.parametrize("case", sorted(TRAJECTORIES), ids=lambda c: f"{c}steps")
+def test_train_trajectory_matches_jax(jax_side, case):
+    """Steps from the same converted init on identical pre-rendered
+    batches: the loss trajectory agrees within the case's rtol, a NaN
+    batch is skipped by both guards, Adam's counts advance with the trained
+    steps only, the BatchNorm statistics after the first step agree within
+    1e-4 of each tensor's largest value (later, the weights' f32 noise
+    moves them apart), and the parameter movements point the same way."""
+    n_steps, lr, decay, nan_at, rtol = TRAJECTORIES[case]
+    fresh_state, jax_step = jax_side(lr, decay)
     jstate = fresh_state()
-    state = _torch_state()
+    state = _torch_state(lr, decay)
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
     step = trainer.make_aif_train_step("D_FS")
-    jl, tl = [], []
-    for stack, fds, depth, aif in _batches(3, seed=1):
+    jl, tl, skipped = [], [], []
+    for i, (stack, fds, depth, aif) in enumerate(_batches(n_steps, seed=1)):
+        if i == nan_at:
+            stack = np.full_like(stack, np.nan)
         jstate, jloss = jax_step(jstate, stack, fds, depth, aif)
         losses = step(state, *_t(stack, fds, depth, aif))
         jl.append(float(jloss["total"]))
         tl.append(float(losses["total"]))
-        assert float(losses["skipped_nonfinite"]) == 0.0
-    np.testing.assert_allclose(tl, jl, rtol=1e-3)
-    assert int(state.step) == 3 and int(state.opt.count) == 3
+        skipped.append((float(losses["skipped_nonfinite"]),
+                        float(jloss["skipped_nonfinite"])))
+        if i == 0:
+            assert _stats_deviation(state, jstate) <= 1e-4
+    rel = [abs(a - b) / abs(b) for a, b in zip(tl, jl) if b]
+    cos, divergence = _movement(state, jstate, start)
+    print(f"measured: AiF {n_steps}-step loss rel max {max(rel):.3g}",
+          np.array2string(np.array(rel), precision=2, max_line_width=300),
+          f"movement cosine {cos:.4f}, divergence / movement {divergence:.3g}")
+    assert skipped == [(float(i == nan_at),) * 2 for i in range(n_steps)]
+    np.testing.assert_allclose(tl, jl, rtol=rtol)
+    trained = n_steps - (nan_at is not None)
+    assert int(state.step) == n_steps and int(state.opt.count) == trained
+    assert int(state.opt.schedule_count) == int(jstate.opt_state[1].count) == trained
+    assert cos > 0.75 and divergence < 0.6
 
 
 def test_nan_batch_leaves_state_unchanged():
@@ -178,7 +255,7 @@ def test_slice_render_then_train_matches_jax(jax_side):
     """The slice as a whole: render_focal_stack through PSFNet (the port's
     plain render here, JAX's XLA path) then 2 train steps, B=1, S=4,
     64x128.  Stacks agree within 5e-6, losses within rtol 1e-3."""
-    fresh_state, jax_step = jax_side
+    fresh_state, jax_step = jax_side()
     lens = JaxPSFNet(LENS, kernel_size=11, sensor_res=(H, W))
     lens.load_net(PSFNET_CKPT)
     net = PSFNet(kernel_size=11, sensor_res=(H, W), device="cpu")
