@@ -12,7 +12,9 @@
 //   mode 'mlponly'  the MLP, sigmoid and L1 norm only (no halo, no
 //                   convolution); the output is the first C taps;
 //   mode 'convonly' no MLP: the PSF is 0.01 * z broadcast to every tap, with
-//                   no sigmoid and no normalisation; convolution only;
+//                   no sigmoid and no normalisation; convolution only.  It
+//                   is a kernel of its own, psf_conv.cu, which the entry
+//                   point below launches for mode 2;
 //   pipe            the MLP as two independent half-tile chains; the same
 //                   result as 'full'.  f32: two groups of half the block's
 //                   threads, each streaming the weights for its half of the
@@ -75,15 +77,14 @@ __device__ __forceinline__ float linspace_at(float start, float stop, int num,
   return __fadd_rn(__fmul_rn(start, __fsub_rn(1.f, t)), __fmul_rn(stop, t));
 }
 
-// Shared memory of one block: NG groups of Stage::kBytes (none for
-// 'convonly'), then the image halo (none for 'mlponly').
+// Shared memory of one block: NG groups of Stage::kBytes, then the image
+// halo (none for 'mlponly').
 template <class Stage, int NG, int MODE>
 size_t smem_bytes(int C, int ks) {
   constexpr int TH = NG * Stage::GP / TW;
-  const size_t groups = MODE == kConvOnly ? 0 : (size_t)NG * Stage::kBytes;
   const size_t halo =
       MODE == kMlpOnly ? 0 : sizeof(float) * C * (TH + ks - 1) * (TW + ks - 1);
-  return groups + halo;
+  return (size_t)NG * Stage::kBytes + halo;
 }
 
 // A block of NG groups of Stage::GT threads owns a tile of TH x TW pixels,
@@ -104,10 +105,8 @@ fused_psf_render_kernel(const float* __restrict__ img,
   constexpr int TH = BP / TW;
   static_assert(TH * TW == BP, "a tile is the block's pixels");
   extern __shared__ float4 smem4[];
-  __shared__ float zpsf[BP];  // 'convonly': the PSF value of each pixel
   char* smem = reinterpret_cast<char*>(smem4);
-  float* halo = reinterpret_cast<float*>(
-      smem + (MODE == kConvOnly ? 0 : NG * Stage::kBytes));
+  float* halo = reinterpret_cast<float*>(smem + NG * Stage::kBytes);
 
   const int t = threadIdx.x;
   const int grp = t / GT;
@@ -141,31 +140,27 @@ fused_psf_render_kernel(const float* __restrict__ img,
     py = linspace_at(1.f, -1.f, H, gy);
     const float d = depth[(size_t)n * plane + (size_t)gy * W + gx];
     pz = clamp01(__fdiv_rn(__fsub_rn(d, d_min), range));
-    if constexpr (MODE == kConvOnly) zpsf[t] = pz * 0.01f;
   }
   const int taps = ks * ks;
 
   for (int s = 0; s < S; ++s) {
     __syncthreads();  // the previous frame's convolution is done
-    if constexpr (MODE != kConvOnly) {
-      if (t < BP) {
-        const float fz =
-            clamp01(__fdiv_rn(__fsub_rn(focus[n * S + s], d_min), range));
-        Stage::put_field(smem + (t / GP) * Stage::kBytes, t % GP, px, py, pz,
-                         fz);
-      }
-      __syncthreads();
-      // each group runs the MLP on its pixels, then the sigmoid and the L1
-      // normalisation in place, one thread per pixel
-      const int tl = t - grp * GT;
-      float* res = Stage::run(L, wpack, smem + grp * Stage::kBytes, tl,
-                              1 + grp);
-      if (tl < GP) {
-        float* px_taps = res + tl * Stage::PSTR;
-        sigmoid_l1_px(px_taps, Stage::FSTR, px_taps, Stage::FSTR, taps);
-      }
-      __syncthreads();
+    if (t < BP) {
+      const float fz =
+          clamp01(__fdiv_rn(__fsub_rn(focus[n * S + s], d_min), range));
+      Stage::put_field(smem + (t / GP) * Stage::kBytes, t % GP, px, py, pz,
+                       fz);
     }
+    __syncthreads();
+    // each group runs the MLP on its pixels, then the sigmoid and the L1
+    // normalisation in place, one thread per pixel
+    const int tl = t - grp * GT;
+    float* res = Stage::run(L, wpack, smem + grp * Stage::kBytes, tl, 1 + grp);
+    if (tl < GP) {
+      float* px_taps = res + tl * Stage::PSTR;
+      sigmoid_l1_px(px_taps, Stage::FSTR, px_taps, Stage::FSTR, taps);
+    }
+    __syncthreads();
 
     // out[c, y, x] = sum_ij halo[c, y+i, x+j] * psf[i*ks+j, pixel]
     // ('mlponly': out[c, y, x] = psf[c, pixel])
@@ -174,25 +169,18 @@ fused_psf_render_kernel(const float* __restrict__ img,
       const int p = i - c * BP;
       const int ty = p / TW;
       const int tx = p - ty * TW;
-      const float* psf;
-      int fstr;
-      if constexpr (MODE == kConvOnly) {
-        psf = zpsf + p;
-        fstr = 0;
-      } else {
-        psf = Stage::result(smem + (p / GP) * Stage::kBytes, L.n_layers) +
-              (p % GP) * Stage::PSTR;
-        fstr = Stage::FSTR;
-      }
+      const float* psf =
+          Stage::result(smem + (p / GP) * Stage::kBytes, L.n_layers) +
+          (p % GP) * Stage::PSTR;
       float acc;
       if constexpr (MODE == kMlpOnly) {
-        acc = psf[c * fstr];
+        acc = psf[c * Stage::FSTR];
       } else {
         const float* hb = halo + c * hh * hw + ty * hw + tx;
         acc = 0.f;
         for (int a = 0; a < ks; ++a) {
           for (int bb = 0; bb < ks; ++bb) {
-            acc = fmaf(hb[a * hw + bb], psf[(a * ks + bb) * fstr], acc);
+            acc = fmaf(hb[a * hw + bb], psf[(a * ks + bb) * Stage::FSTR], acc);
           }
         }
       }
@@ -396,14 +384,21 @@ int launch_wg(const float* img, const float* depth, const float* focus,
 
 extern "C" {
 
+// psf_conv.cu: the 'convonly' kernel.
+int aadff_psf_conv(const float* img, const float* depth, float* out, int N,
+                   int C, int H, int W, int ks, float d_min, float d_max,
+                   void* stream);
+
 // img [N,C,H,W], depth_mm [N,H,W], focus_mm [N,S], out [N,S,C,H,W]: f32,
 // contiguous, on the current device.  wpack: the packed weights, f32 or
 // bf16 (`use_bf16` 0 or 1); layout: host array of 5 ints per layer (k, f,
 // fpad, w_off, b_off).  mode: 0 full, 1 mlponly, 2 convonly; pipe 0 or 1;
-// a mode other than full, or pipe, takes S = 1 only ('convonly' has no MLP,
-// so neither bf16 nor pipe changes it; in bf16, pipe is 'full': its two
-// consumer warpgroups are the two half-tile chains).  Launches on `stream`
-// and returns its error (0 on success); it does not synchronise.
+// a mode other than full, or pipe, takes S = 1 only.  'convonly' has no
+// MLP: it reads neither wpack nor layout (either may be null), and neither
+// bf16 nor pipe changes it; it launches psf_conv.cu (odd ks up to 15).  In
+// bf16, pipe is 'full': its two consumer warpgroups are the two half-tile
+// chains.  Launches on `stream` and returns its error (0 on success); it
+// does not synchronise.
 int aadff_fused_psf_render(const float* img, const float* depth,
                            const float* focus, const void* wpack,
                            const int* layout, int n_layers, float* out, int N,
@@ -414,6 +409,10 @@ int aadff_fused_psf_render(const float* img, const float* depth,
       mode < kFull || mode > kConvOnly || (use_bf16 != 0 && use_bf16 != 1) ||
       (pipe != 0 && pipe != 1) || ((mode != kFull || pipe) && S != 1)) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (mode == kConvOnly) {
+    return aadff_psf_conv(img, depth, out, N, C, H, W, ks, d_min, d_max,
+                          stream);
   }
   MlpLayout L;
   int nchunks = 0, nbias = 0;
@@ -428,10 +427,6 @@ int aadff_fused_psf_render(const float* img, const float* depth,
   }
 
   const cudaStream_t st = (cudaStream_t)stream;
-  if (mode == kConvOnly) {
-    return launch<F32Full, 1, kConvOnly>(img, depth, focus, wpack, L, out, N,
-                                         S, C, H, W, ks, d_min, d_max, st);
-  }
   if (use_bf16) {
     return mode == kFull
                ? launch_wg<kFull>(img, depth, focus, wpack, L, out, N, S, C,

@@ -19,7 +19,8 @@ from pathlib import Path
 
 _ROOT = Path(__file__).resolve().parents[2]
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (_CSRC / "fused_psf_render.cu", _CSRC / "mlp_psf.cu")
+SOURCES = (_CSRC / "fused_psf_render.cu", _CSRC / "mlp_psf.cu",
+           _CSRC / "psf_conv.cu")
 HEADERS = (_CSRC / "mlp_tile.cuh",)  # included by the sources
 BUILD_DIR = _ROOT / "build" / "aadff_tpu_torch"
 LIBRARY = BUILD_DIR / "libaadff_kernels.so"

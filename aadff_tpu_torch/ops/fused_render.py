@@ -1,5 +1,6 @@
-"""Fused PSF render: the hand-written CUDA kernel
-`csrc/fused_psf_render.cu`, its wrapper and its plain PyTorch version.
+"""Fused PSF render: the hand-written CUDA kernels
+`csrc/fused_psf_render.cu` and, for mode 'convonly', `csrc/psf_conv.cu`,
+their wrapper and their plain PyTorch version.
 
 Replaces the Pallas kernel of `aadff_tpu/ops/pallas_render.py` (`_kernel`
 :90-192 as launched by `fused_psf_render_stack` :292-366 and
@@ -40,6 +41,7 @@ variant_launches: collections.Counter = collections.Counter()
 
 COMPUTE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MODES = ("full", "mlponly", "convonly")
+CONVONLY_MAX_KS = 15  # csrc/psf_conv.cu's instantiations: odd ks to 15
 
 
 def check_compute_dtype(compute_dtype) -> str:
@@ -280,22 +282,28 @@ def fused_psf_render(mlp: MLP, img: torch.Tensor, depth_mm: torch.Tensor,
     check_tensor("img", img, (N, C, H, W), dev)
     check_tensor("depth_mm", depth_mm, (N, H, W), dev)
     check_tensor("focus_mm", focus_mm, (N, S), dev)
-    wpack, layout = packed_weights(mlp, compute_dtype)
-    check_tensor("weights", wpack, tuple(wpack.shape), dev, compute_dtype)
-    if layout[-4] != ks * ks:
-        raise ValueError(f"MLP has {layout[-4]} outputs, expected {ks * ks}")
+    if mode == "convonly":  # no MLP: the kernel reads no weights
+        if ks > CONVONLY_MAX_KS:
+            raise ValueError(f"mode='convonly' takes an odd ks up to "
+                             f"{CONVONLY_MAX_KS}, got {ks}")
+        wptr, c_layout, n_layers = None, None, 0
+    else:
+        wpack, layout = packed_weights(mlp, compute_dtype)
+        check_tensor("weights", wpack, tuple(wpack.shape), dev, compute_dtype)
+        if layout[-4] != ks * ks:
+            raise ValueError(f"MLP has {layout[-4]} outputs, expected {ks * ks}")
+        wptr, n_layers = wpack.data_ptr(), len(layout) // 5
+        c_layout = (ctypes.c_int * len(layout))(*layout)
 
     from . import _build  # noqa: PLC0415  (builds with nvcc at first use)
 
     lib = _build.kernels()
     out = torch.empty((N, S, C, H, W), dtype=torch.float32, device=dev)
-    n_layers = len(layout) // 5
-    c_layout = (ctypes.c_int * len(layout))(*layout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aadff_fused_psf_render(
             img.data_ptr(), depth_mm.data_ptr(), focus_mm.data_ptr(),
-            wpack.data_ptr(), c_layout, n_layers, out.data_ptr(),
+            wptr, c_layout, n_layers, out.data_ptr(),
             N, S, C, H, W, ks, float(d_min), float(d_max), int(dt == "bf16"),
             MODES.index(mode), int(bool(pipe)), stream)
     if rc != 0:

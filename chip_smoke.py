@@ -21,7 +21,8 @@ committed fixtures of tests/torch_assets/:
   build       nvcc builds the kernels into build/aadff_tpu_torch/; ptxas'
               registers, spills and wgmma warnings of every kernel; the
               three bf16 (wgmma) kernels have no spills and no C7512
-              ("wgmma serialized")
+              ("wgmma serialized"), and no instantiation of the 'convonly'
+              kernel (csrc/psf_conv.cu) spills
   kernels     the fused PSF-render kernel against its plain PyTorch version
               on the card (TF32 off for both): the main-path stack
               [2,8,3,480,640] and a ragged 123x161 frame
@@ -46,8 +47,16 @@ committed fixtures of tests/torch_assets/:
               the fused kernel's diagnostic modes on a 480x640 frame, f32
               and bf16: 'mlponly', 'convonly' and pipe, each against its
               plain version, pipe against 'full'; their times split the
-              kernel into MLP and convolution; 'convonly' also by
-              torch.profiler, the kernel alone (profiler_us)
+              kernel into MLP and convolution.  'mlponly' beside the
+              cuBLAS chains of B3 on the frame's 307,200 rows (library_ms).
+              'convonly' is its own kernel (csrc/psf_conv.cu): also held to
+              its plain version at N = 2, on a ragged 123x161 frame, a 7x9
+              frame (smaller than the halo) and at ks 7, one launch each;
+              its device time by torch.profiler over 50 launches, warm and
+              L2-cold (64 MB written between launches), with its share of
+              the bound, beside PyTorch's depthwise 11x11 F.conv2d of the
+              replicate-padded image (library_ms, TF32 off; the kernels it
+              ran are named in library_names)
   train       3 train steps: render the focal stack through the fused
               kernel -> AiFDepthNet forward/backward -> Adam with a cosine
               schedule and the non-finite guard
@@ -207,6 +216,17 @@ BF16_DESIGN = ("wgmma stage: 2 consumer warpgroups (A in registers, turns on "
                "the tensor cores) + 1 producer, bulk-copy ring of 16 KB "
                "swizzled chunks")
 BF16_KERNELS = ("fused_psf_render_wg<0>", "fused_psf_render_wg<1>", "mlp_psf_wg")
+# The 'convonly' kernel (csrc/psf_conv.cu), as ptxas names it for ks = 11,
+# and its design; its device time by torch.profiler over PROFILE_REPS
+# launches, back to back (warm) and with FLUSH_BYTES written between
+# launches (L2-cold: the H100's L2 holds 50 MB).
+CONV_KERNEL = f"psf_conv_kernel<{KS}>"
+CONV_DESIGN = ("128 threads on a 16x64 tile of one channel, 2x4 outputs a "
+               "thread from 16-byte shared loads of ks+3 halo values a row; "
+               "halo by 4-byte cp.async, edge-clamped; float4 depth and "
+               "stores")
+PROFILE_REPS = 50
+FLUSH_BYTES = 64 << 20
 
 
 class SmokeError(RuntimeError):
@@ -311,7 +331,8 @@ def ptxas_report(log):
     integer template arguments (the f32 stage's geometry, the mode)."""
     def short(mangled):
         m = re.search(r"\d(fused_psf_render_wg|fused_psf_render_kernel|"
-                      r"mlp_psf_wg|mlp_psf_kernel)(I.*?EEvP|EP)", mangled)
+                      r"mlp_psf_wg|mlp_psf_kernel|psf_conv_kernel)(I.*?EEvP|EP)",
+                      mangled)
         if not m:
             return mangled
         if m.group(2) == "EP":
@@ -1190,21 +1211,99 @@ def profile_fit_step(torch, net, opt, foc_z, state):
     return len(kernels), n_kernels, busy / 1e3, wall_ms
 
 
-def kernel_device_us(torch, fn, reps, name_part):
-    """`reps` calls of fn under torch.profiler: (mean device microseconds of
-    the kernels whose name holds `name_part`, their count).  The kernel
-    alone, where CUDA events around the call also time the launch."""
+def kernel_device_us(torch, fn, reps, name_part=None, flush=None):
+    """`reps` calls of fn under torch.profiler, each after flush() if one is
+    given: (device microseconds a call, summed over the kernels whose name
+    holds `name_part`, or over all of fn's kernels if it is None; the count
+    of those kernels; their names).  Copies and memsets are never counted,
+    so a flush that copies into a buffer stays out.  The kernels alone,
+    where CUDA events around the call also time the launch."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and name_part in e.name]
-    return (sum(spans) / len(spans) if spans else None), len(spans)
+    kept = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))
+            and (name_part is None or name_part in e.name)]
+    us = sum(e.time_range.end - e.time_range.start for e in kept) / reps
+    # a kernel's name without its arguments and namespaces
+    names = sorted({re.split(r"[<(]", e.name.replace("(anonymous namespace)::", "")
+                             .removeprefix("void "))[0].split("::")[-1]
+                    for e in kept})
+    return (us if kept else None), len(kept), names
+
+
+def run_convonly(torch, device, net, fused_render, mlp_psf, cases):
+    """'convonly' (csrc/psf_conv.cu) beyond kernel_split's 480x640 frame:
+    each case {name: (img, depth_mm, focus_mm, ks)} against the plain
+    version, its launches counted; then the 480x640 frame (the first case)
+    by torch.profiler, warm and L2-cold, and PyTorch's depthwise ks x ks
+    convolution of the edge-padded image (TF32 off), the same ks^2
+    multiply-adds an output without the per-pixel scale: a yardstick that
+    the port never calls.  Returns the fields of the kernel's record."""
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    def render(img, depth, focus, ks, plain=False):
+        fn = (fused_render.fused_psf_render_reference if plain
+              else fused_render.fused_psf_render)
+        return fn(net.model, img, depth, focus, ks, net.d_min, net.d_max,
+                  mode="convonly")
+
+    torch.cuda.synchronize()
+    reset_counts(fused_render, mlp_psf)
+    outs = {name: render(*case) for name, case in cases.items()}
+    torch.cuda.synchronize()
+    launches = dict(fused_render.variant_launches)
+    errs, shapes_ok = {}, True
+    for name, (img, depth, focus, ks) in cases.items():
+        out = outs[name]
+        shapes_ok &= (out.shape == (img.shape[0], 1, *img.shape[1:])
+                      and bool(torch.isfinite(out).all()))
+        errs[name] = (out - render(img, depth, focus, ks, True)).abs().max().item()
+    del outs
+
+    img, depth, focus, ks = next(iter(cases.values()))
+    flush_src = torch.empty(FLUSH_BYTES // 4, device=device)
+    flush_dst = torch.empty_like(flush_src)
+
+    def flush():
+        flush_dst.copy_(flush_src)  # a device copy: the profiler skips it
+
+    def kernel():
+        render(img, depth, focus, ks)
+
+    pad = (ks - 1) // 2
+    box = torch.ones(img.shape[1], 1, ks, ks, device=device)
+
+    def library():
+        return F.conv2d(F.pad(img, (pad,) * 4, mode="replicate"), box,
+                        groups=img.shape[1])
+
+    z = ((depth - net.d_min) / (net.d_max - net.d_min)).clamp(0.0, 1.0) * 0.01
+    lib_err = (library() * z[:, None]
+               - render(img, depth, focus, ks, True)[:, 0]).abs().max().item()
+    rec = {"launches_by_case": launches, "cases": list(cases),
+           "max_abs_err_by_case": errs, "shapes_ok": shapes_ok,
+           "profile_reps": PROFILE_REPS, "flush_bytes": FLUSH_BYTES}
+    for tag, fl in (("", None), ("_cold", flush)):
+        us, n, names = kernel_device_us(torch, kernel, PROFILE_REPS,
+                                        "psf_conv", fl)
+        lib_us, lib_n, lib_names = kernel_device_us(torch, library,
+                                                    PROFILE_REPS, None, fl)
+        rec.update({f"profiler_us{tag}": us, f"profiler_kernels{tag}": n,
+                    f"kernel_names{tag}": names,
+                    f"library_us{tag}": lib_us, f"library_kernels{tag}": lib_n,
+                    f"library_names{tag}": lib_names})
+    rec["library_ms"] = rec["library_us"] / 1e3
+    rec["library_times_scaled_z_vs_plain_max_abs"] = lib_err
+    del flush_src, flush_dst
+    return rec
 
 
 def run_psf_fit(torch, np, gen, device, make_scenes, fused_render, mlp_psf):
@@ -1377,6 +1476,10 @@ def main():
                   and rec.get("spill_loads") == 0, f"{name}: ptxas {rec}")
             check("C7512" not in rec["warnings"],
                   f"{name}: ptxas serialized its wgmma (C7512): {rec}")
+        conv = {k: v for k, v in ptxas.items() if k.startswith("psf_conv_kernel")}
+        check(CONV_KERNEL in conv and all(
+            rec.get("spill_stores") == 0 and rec.get("spill_loads") == 0
+            for rec in conv.values()), f"psf_conv_kernel: ptxas {conv}")
 
     # ---- the image readers: JPEG (host C++), EXR -------------------------
     t0 = time.perf_counter()
@@ -1648,38 +1751,71 @@ def main():
     split_counts = dict(fused_render.variant_launches)
     split = {}
     for (dt, mode, pipe), out in outs.items():
-        args = (*frame_args, dtypes[dt], mode, pipe)
+        mode_args = (*frame_args, dtypes[dt], mode, pipe)
         name = fused_render.variant(dtypes[dt], mode, pipe)
-        ref = fused_render.fused_psf_render_reference(*args)
+        ref = fused_render.fused_psf_render_reference(*mode_args)
         rec = dict(zip(("max_abs_err", "mean_abs_err"), errors(out, ref)))
         if pipe:
             full = fused_render.fused_psf_render(*frame_args, dtypes[dt])
             rec["vs_full_max_abs"] = (out - full).abs().max().item()
         rec["ms"] = time_ms(torch, lambda: fused_render.fused_psf_render(
-            *args), 5)
+            *mode_args), 5)
         rec["plain_ms"] = time_ms(torch, lambda: (
-            fused_render.fused_psf_render_reference(*args)), 3)
+            fused_render.fused_psf_render_reference(*mode_args)), 3)
         rec["bound_ms"], rec["bound_by"] = render_bound_ms(
             net.model, 1, 1, 3, H, W, KS, dt, mode)
         rec["launches"] = split_counts.get(name, 0)
-        if mode == "convonly":  # ~3 us of work: the event time is the launch's
-            rec["profiler_us"], rec["profiler_kernels"] = kernel_device_us(
-                torch, lambda: fused_render.fused_psf_render(*args), 20,
-                "fused_psf_render")
         split[name] = rec
     del outs
+    # 'mlponly' computes the PSF rows of the frame's 307,200 pixels: the
+    # cuBLAS chains that B3's rows time are its yardsticks
+    frame_field = fused_render.psf_field(
+        frame_args[2], frame_args[3][:, 0], net.d_min, net.d_max
+    ).reshape(-1, 4).contiguous()
+    mlp16_library = library_mlp_bf16(net.model)
+    split["frame/f32/mlponly"]["library_ms"] = time_ms(
+        torch, lambda: mlp_psf.mlp_psf_reference(net.model, frame_field), 5)
+    split["frame/bf16/mlponly"]["library_ms"] = time_ms(
+        torch, lambda: mlp16_library(frame_field), 10)
+    del frame_field
+    # 'convonly' (csrc/psf_conv.cu) on every shape it may meet; ~3 us of
+    # work, so its time is the profiler's device time, not the events'
+    # (which also time the launch)
+    rg7 = torch.Generator(device=device).manual_seed(args.seed + 2)
+    conv_cases = {
+        "frame_1x3x480x640": (*frame_args[1:4], KS),
+        "n2_2x3x480x640": (aif, render_args[2],
+                           render_args[3][:, :1].contiguous(), KS),
+        "ragged_1x3x123x161": (rimg, rdepth, rfocus, KS),
+        "tiny_1x3x7x9": (torch.rand(1, 3, 7, 9, generator=rg7, device=device),
+                         -(500 + 14500 * torch.rand(1, 7, 9, generator=rg7,
+                                                    device=device)),
+                         rfocus, KS),
+        "ks7_1x3x123x161": (rimg, rdepth, rfocus, 7)}
+    conv = split["frame/-/convonly"]
+    conv.update(run_convonly(torch, device, net, fused_render, mlp_psf,
+                             conv_cases))
+    conv["share_of_bound"] = 1e3 * conv["bound_ms"] / conv["profiler_us"]
+    conv["share_of_bound_cold"] = (1e3 * conv["bound_ms"]
+                                   / conv["profiler_us_cold"])
     full_ms = {"f32": frame_ms, "bf16": frame16_ms}
     shares = {dt: {"mlponly_over_full": split[f"frame/{dt}/mlponly"]["ms"]
                    / full_ms[dt],
-                   "convonly_over_full": split["frame/-/convonly"]["ms"]
+                   "convonly_over_full": conv["profiler_us"] / 1e3
                    / full_ms[dt]} for dt in full_ms}
     phase("kernel_split", t0, tol={"f32": KERNEL_TOL,
                                    "bf16_max_abs": BF16_MAX_ABS,
                                    "bf16_mean_abs": BF16_MEAN_ABS},
           modes=split, full_ms=full_ms, shares=shares)
-    check(split["frame/-/convonly"]["profiler_kernels"] == 20,
-          f"convonly under the profiler: {split['frame/-/convonly']['profiler_kernels']} "
-          f"kernels of 20 launches")
+    for tag in ("", "_cold"):
+        check(conv[f"profiler_kernels{tag}"] == PROFILE_REPS,
+              f"convonly{tag} under the profiler: "
+              f"{conv[f'profiler_kernels{tag}']} kernels of {PROFILE_REPS} launches")
+    check(conv["launches_by_case"] == {"frame/-/convonly": len(conv_cases)},
+          f"convonly cases: launches {conv['launches_by_case']}")
+    check(conv["shapes_ok"], "convonly cases: a shape or a non-finite value")
+    for case, err in conv["max_abs_err_by_case"].items():
+        check(err <= KERNEL_TOL, f"convonly {case}: vs plain {err:.3g}")
     for name, rec in split.items():
         check(rec["launches"] == 1, f"{name}: {rec['launches']} launches")
         if "/bf16/" in name:
@@ -1880,6 +2016,7 @@ def main():
     phase("psf_gate", t0, **run_psf_gate(torch, device))
 
     render_src = "aadff_tpu_torch/csrc/fused_psf_render.cu"
+    conv_src = "aadff_tpu_torch/csrc/psf_conv.cu"
     mlp_src = "aadff_tpu_torch/csrc/mlp_psf.cu"
     b1 = "aadff_tpu/ops/pallas_render.py:336"
     b2 = "aadff_tpu/ops/pallas_render.py:222"
@@ -1935,16 +2072,27 @@ def main():
               l1_px_vs_f32=b3_16_f32["field_614400x4"][1],
               **bf16_extra("mlp_psf_wg")),
     ]
+    conv_keys = ("profiler_us", "profiler_us_cold", "share_of_bound",
+                 "share_of_bound_cold", "library_us_cold",
+                 "max_abs_err_by_case")
     for name, rec in split.items():
+        convonly = name == "frame/-/convonly"
         kernels.append(entry(
-            f"fused_psf_render[{name.split('/', 1)[1]}]", render_src,
+            f"fused_psf_render[{name.split('/', 1)[1]}]",
+            conv_src if convonly else render_src,
             "aadff_tpu/ops/pallas_render.py:222 (modes :93-101)",
             rec["launches"], (rec["max_abs_err"], rec["mean_abs_err"]),
             bf16_tol if "/bf16/" in name else KERNEL_TOL, rec["ms"],
             rec["plain_ms"], (rec["bound_ms"], rec["bound_by"]),
+            library_ms=rec.get("library_ms"),
             variant=name, **({"vs_full_max_abs": rec["vs_full_max_abs"]}
                              if "vs_full_max_abs" in rec else {}),
-            **({"profiler_us": rec["profiler_us"]} if "profiler_us" in rec else {}),
+            **({"design": CONV_DESIGN,
+                "library": "F.conv2d(F.pad(img, replicate), ones[C,1,ks,ks], "
+                           "groups=C), TF32 off, torch.profiler device time",
+                "library_names": rec["library_names"],
+                "ptxas": {CONV_KERNEL: ptxas.get(CONV_KERNEL)},
+                **{k: rec[k] for k in conv_keys}} if convonly else {}),
             **(bf16_extra("fused_psf_render_wg<1>" if "mlponly" in name
                           else "fused_psf_render_wg<0>") if "/bf16/" in name else {})))
     emit({"kernels": kernels})

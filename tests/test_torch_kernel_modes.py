@@ -1,7 +1,8 @@
 """The fused render's diagnostic modes against the JAX package's, on the
 CPU: `mode='mlponly'`, `mode='convonly'` and `pipe=True` of
 `fused_render_frame` (aadff_tpu/ops/pallas_render.py:93-101, 154-171),
-in f32 and in bf16, with the Pallas kernel in interpret mode.
+in f32 and in bf16, with the Pallas kernel in interpret mode; and
+'convonly' against an independent float64 formula.
 
 The port runs the plain version of its kernel on CPU tensors (the CUDA
 kernel is held to it on the card by chip_smoke.py).  Tolerances: f32 at the
@@ -12,6 +13,7 @@ the other way and move later layers).  The wrapper's weight pack is also
 checked here: it is made once per state of the weights.
 """
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,6 +81,55 @@ def test_mode_matches_pallas(weights, dt, mode, pipe):
     else:
         assert err.max() <= BF16_MAX_ABS, err.max()
         assert err.mean() <= BF16_MEAN_ABS, err.mean()
+
+
+# (N, H, W, ks): the frame chip_smoke.py measures, two images, a ragged
+# frame whose rows are not 16-byte aligned, a frame smaller than the halo
+# (edge replication reaches across it), and another ks
+CONVONLY_CASES = [(1, 480, 640, 11), (2, 480, 640, 11), (1, 123, 161, 11),
+                  (1, 7, 9, 11), (1, 123, 161, 7)]
+
+
+@pytest.mark.parametrize("N, H, W, ks", CONVONLY_CASES,
+                         ids=[f"{n}x{h}x{w}_ks{k}" for n, h, w, k in CONVONLY_CASES])
+def test_convonly_is_a_scaled_box_sum(weights, N, H, W, ks):
+    """'convonly' (csrc/psf_conv.cu on the card) is 0.01 * z times the
+    ks x ks box sum of the edge-padded image: the plain version against that
+    formula in float64 numpy, within 1e-6 (its 121 f32 sums of values up to
+    ~1.2 round by ~1e-7 each; the kernel is held to the plain version on the
+    card).  Depths reach past both normalisation ends, so z is clamped."""
+    _, mlp = weights
+    rng = np.random.default_rng(10 + N + H + ks)
+    img = rng.uniform(0, 1, (N, 3, H, W)).astype(np.float32)
+    depth = -rng.uniform(100, 25000, (N, H, W)).astype(np.float32)
+    out = fused_render.fused_psf_render(
+        mlp, torch.from_numpy(img), torch.from_numpy(depth),
+        torch.full((N, 1), -900.0), ks, D_MIN, D_MAX, mode="convonly")
+    pad = (ks - 1) // 2
+    padded = np.pad(img.astype(np.float64),
+                    ((0, 0), (0, 0), (pad, pad), (pad, pad)), mode="edge")
+    box = sum(padded[:, :, a:a + H, b:b + W]
+              for a in range(ks) for b in range(ks))
+    z = np.clip((depth.astype(np.float64) - D_MIN) / (D_MAX - D_MIN), 0, 1)
+    ref = 0.01 * z[:, None] * box
+    assert out.shape == (N, 1, 3, H, W)
+    err = np.abs(out[:, 0].numpy() - ref).max()
+    assert err <= 1e-6, err
+
+
+def test_convonly_declaration_matches_definition():
+    """fused_psf_render.cu launches 'convonly' through its own extern "C"
+    declaration of psf_conv.cu's entry point; C names carry no types, so
+    the linker would not catch a mismatch: the two signatures are equal."""
+    csrc = os.path.join(REPO, "aadff_tpu_torch", "csrc")
+
+    def signature(name, end):
+        with open(os.path.join(csrc, name)) as f:
+            m = re.search(r"\nint aadff_psf_conv\(([^)]*)\)\s*" + end, f.read())
+        assert m, name
+        return " ".join(m.group(1).split())
+
+    assert signature("fused_psf_render.cu", ";") == signature("psf_conv.cu", "{")
 
 
 def test_mlponly_is_the_first_taps(weights):
