@@ -223,14 +223,22 @@ class NumpyLoader:
 
     The order of a shuffled epoch is `np.random.default_rng(seed).shuffle`
     of the indices, as in the JAX package; a worker's exception is raised
-    in the consuming loop."""
+    in the consuming loop.  With `shard=(rank, n)` it yields rank's rows of
+    each global batch of `batch_size` (as `parallel.mesh.shard_batch` splits
+    it) and reads no other item: n loaders of the same seed then yield the
+    one-process batches between them."""
 
-    def __init__(self, dataset, batch_size=1, shuffle=False, prefetch=2, seed=0):
+    def __init__(self, dataset, batch_size=1, shuffle=False, prefetch=2, seed=0,
+                 shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = prefetch
         self.rng = np.random.default_rng(seed)
+        self.shard = shard
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"{shard[1]} ranks")
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -240,8 +248,12 @@ class NumpyLoader:
         if self.shuffle:
             self.rng.shuffle(idx)
         for b in range(len(self)):
-            items = [self.dataset[int(i)]
-                     for i in idx[b * self.batch_size : (b + 1) * self.batch_size]]
+            rows = idx[b * self.batch_size : (b + 1) * self.batch_size]
+            if self.shard is not None:
+                rank, n = self.shard
+                k = self.batch_size // n
+                rows = rows[rank * k : (rank + 1) * k]
+            items = [self.dataset[int(i)] for i in rows]
             yield [np.stack([it[k] for it in items]) for k in range(len(items[0]))]
 
     def __iter__(self):

@@ -8,6 +8,11 @@ conv2c and `Conv3dBN_2` conv2b.  The tables below record that order.
     [in, out, kd, kh, kw], with no flip: the Flax layer flips internally
     (`aadff_tpu/models/layers.py:50-90`), which is torch's definition.
   * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+  * The DIRECT head's Dense kernels [S, out] -> Linear weights [out, S].
+The variants (`models/aifnet.py:AiFDepthNet`) keep these names: `remat`
+names its blocks as the plain model does, `n_classes` and `n_channels`
+change only the shapes of the last and first convolutions, and
+`stage2='direct'` adds `Dense_0` (depth) and `Dense_1` (AiF).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ _CONV_BN = {"conv1a": "Conv3dBN_0", "conv2c": "Conv3dBN_1",
 _MIXED = ("3b", "3c", "4b", "4c", "4d", "4e", "4f", "5b", "5c")
 _MIXED_BRANCH = {"b0": "Conv3dBN_0", "b1b": "Conv3dBN_1", "b1a": "Conv3dBN_2",
                  "b2b": "Conv3dBN_3", "b2a": "Conv3dBN_4", "b3": "Conv3dBN_5"}
+_DENSE = {"direct_depth": "Dense_0", "direct_aif": "Dense_1"}
 _TRANS = {"up_5c": "Trans3dBN_0", "up_5c4f": "Trans3dBN_1",
           "up_5c4f3c": "Trans3dBN_2", "up_5c4f3c2c": "Trans3dBN_3"}
 
@@ -71,6 +77,9 @@ def aifnet_state_from_flax(variables: dict) -> dict[str, torch.Tensor]:
         conv_bn(f"{name}.conv", (flax_name, "Conv3dBN_0"))
     conv("up_final", ("TorchConvTranspose_0",), perm=(3, 4, 0, 1, 2))
     conv("out", ("TorchConv_0", "Conv_0"))
+    for name, flax_name in _DENSE.items():
+        if flax_name in params:
+            conv(name, (flax_name,), perm=(1, 0))
     return out
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel import mesh
 from ..layers import resize_bilinear, resize_trilinear
 from .feat import FeatExactor
 from .submodule import DecoderBlock, DisparityRegression
@@ -101,9 +102,14 @@ class DFVNet(nn.Module):
 def dfv_loss(stacked, stds, gt_depth, mask,
              level_weights=(1.0, 0.8, 0.6, 0.4)):
     """Multi-scale masked L1 (`dffnet.py:122-132`): the sum over levels of
-    weight * mean |pred - gt| over the mask."""
+    weight * mean |pred - gt| over the mask.  Under data parallelism each
+    mean is that of the global batch: every level's sum and the mask's
+    count are summed over the ranks in one all-reduce first
+    (`parallel.mesh.global_sums`)."""
     m = mask.to(stacked[0].dtype)
+    *nums, count = mesh.global_sums(
+        *(((pred - gt_depth).abs() * m).sum() for pred in stacked), m.sum())
     total = 0.0
-    for w, pred in zip(level_weights, stacked):
-        total = total + w * ((pred - gt_depth).abs() * m).sum() / (m.sum() + 1e-12)
+    for w, num in zip(level_weights, nums):
+        total = total + w * num / (count + 1e-12)
     return total

@@ -5,11 +5,16 @@ The library has a C interface and includes no PyTorch header; nvcc takes
 about a minute, most of it for the bf16 wgmma kernels.  It is built at first
 use into `build/aadff_tpu_torch/` under the repository root and rebuilt when
 a source, a header or a flag changes (a stamp file holds their hash).
+Processes that start at once (the ranks of a data-parallel run) build it
+once: the builder holds a file lock beside the library (`build_lock`),
+and a process that waited for it checks the stamp again before it builds.
 Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -59,17 +64,52 @@ def _stamp() -> str:
     return h.hexdigest()
 
 
+def is_current(library: Path, stamp: str) -> bool:
+    """Whether `library` exists and was built from the inputs of `stamp`."""
+    stamp_file = library.with_suffix(".so.stamp")
+    return (library.exists() and stamp_file.exists()
+            and stamp_file.read_text() == stamp)
+
+
+def write_stamp(library: Path, stamp: str, tag: str):
+    """Write `library`'s stamp atomically (a temporary name, then
+    os.replace), after the library itself is in place."""
+    stamp_file = library.with_suffix(".so.stamp")
+    tmp = stamp_file.with_suffix(f".stamp.{tag}")
+    tmp.write_text(stamp)
+    os.replace(tmp, stamp_file)
+
+
+@contextlib.contextmanager
+def build_lock(library: Path):
+    """An exclusive inter-process lock (flock) on `<library>.lock`, held
+    while one process builds `library`; the others wait for it."""
+    library.parent.mkdir(parents=True, exist_ok=True)
+    with open(library.with_suffix(".so.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> dict:
     """Compile the kernels if the library is missing or stale.
 
     Returns {"path", "built", "seconds", "log"}; `log` holds nvcc's output,
     including ptxas' registers, shared memory and spills per kernel.
     """
-    stamp_file = LIBRARY.with_suffix(".so.stamp")
     stamp = _stamp()
-    if LIBRARY.exists() and stamp_file.exists() and stamp_file.read_text() == stamp:
+    if is_current(LIBRARY, stamp):
         return {"path": str(LIBRARY), "built": False, "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(LIBRARY):
+        if is_current(LIBRARY, stamp):  # another process built it meanwhile
+            return {"path": str(LIBRARY), "built": False, "seconds": 0.0,
+                    "log": ""}
+        return _build(stamp)
+
+
+def _build(stamp: str) -> dict:
     tag = f"tmp{os.getpid()}"
     objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
     tmp = LIBRARY.with_suffix(f".so.{tag}")
@@ -96,7 +136,7 @@ def build() -> dict:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, LIBRARY)
-    stamp_file.write_text(stamp)
+    write_stamp(LIBRARY, stamp, tag)
     return {"path": str(LIBRARY), "built": True, "seconds": seconds, "log": log}
 
 

@@ -1,16 +1,17 @@
-"""Aberration-aware DFF training with DFVNet on one device (the port of
+"""Aberration-aware DFF training with DFVNet (the port of
 `aadff_tpu/train/dff_dfv.py`): the train step `_dfv_step_body` :43-73, K
 steps per call `make_dfv_train_multi_step` :80-98, the eval step
 `make_dfv_eval_step` :101-109, `validate_dfv` :112-131 with its metrics,
 and the run `config` :32-41, `train` :134-186 and `main` :188-190.  The
 engine (Adam with the cosine schedule, the non-finite guard,
-`render_focal_stack`) is `train/trainer.py`'s.  Data parallelism is not
-ported yet (ROADMAP A8).
+`render_focal_stack`) is `train/trainer.py`'s.
 
-    python -m aadff_tpu_torch.train.dff_dfv
+    python -m aadff_tpu_torch.train.dff_dfv [--config C] [--device D]
 
 is the twin of `scripts/2_aber_aware_dff_dfv.py`: configs/aber_aware_dff_dfv.yml,
-results under ./results/<date>-AberAware_DFF_DFVNet.
+results under ./results/<date>-AberAware_DFF_DFVNet.  Under
+`python -m torch.distributed.run --nproc_per_node N` it trains
+data-parallel over N ranks, as `train/dff_aif.py` says.
 """
 from __future__ import annotations
 
@@ -26,10 +27,11 @@ from ..dff.dataset import NumpyLoader
 from ..dff.factory import get_dataset, get_lens
 from ..dff.focus import select_focus_dist
 from ..models.dfv.dffnet import DFVNet, dfv_loss
+from ..parallel import mesh
 from ..utils.config import load_config
 from ..utils.image import imwrite_colormap
 from ..utils.logging import set_logger, set_seed
-from .dff_aif import resolve_device, to_device
+from .dff_aif import resolve_device, run, shard_loader, to_device
 from .trainer import (TrainState, create_train_state, guarded_step,
                       make_aif_eval_step, make_multi_step, render_focal_stack,
                       save_checkpoint)
@@ -39,12 +41,14 @@ METRICS = ("abs_rel", "mse", "mae", "rmse", "acc1")
 
 def config(path="configs/aber_aware_dff_dfv.yml"):
     args = load_config(path)
-    args["num_devices"] = 1
-    result_dir = ("./results/" + datetime.now().strftime("%m%d-%H%M%S")
-                  + "-AberAware_DFF_DFVNet")
+    args["num_devices"] = mesh.size()
+    result_dir = mesh.broadcast_object(
+        "./results/" + datetime.now().strftime("%m%d-%H%M%S")
+        + "-AberAware_DFF_DFVNet")
     args["results_dir"] = result_dir
     os.makedirs(result_dir, exist_ok=True)
-    set_logger(result_dir)
+    if mesh.rank() == 0:
+        set_logger(result_dir)
     set_seed(126)
     return args
 
@@ -128,7 +132,8 @@ def train(args, device="cuda", timer=None):
     and, at a lower validation MSE, depth_net_best.  No `dffnet_pretrained`
     is loaded, as the JAX package loads none.  With a `trainer.StepTimer`,
     each train step (render included) is timed and the loop's wait for
-    each batch recorded."""
+    each batch recorded.  Under an active mesh this is one rank of a
+    data-parallel run (`train/dff_aif.py`)."""
     device = resolve_device(device)
     train_lens, test_lens = get_lens(args, device)
     n_stack = args["n_stack"]
@@ -136,27 +141,31 @@ def train(args, device="cuda", timer=None):
     model = DFVNet(clean=False, level=2, use_diff=1).to(device)
 
     train_set, val_set = get_dataset(args)
-    train_loader = NumpyLoader(train_set, batch_size=args["bs"], shuffle=True)
+    train_loader = shard_loader(train_set, args["bs"])
     val_loader = NumpyLoader(val_set, batch_size=1)
 
     steps = max(args["epochs"] * len(train_loader), 1)
     state = create_train_state(model, float(args["lr"]), steps)
+    mesh.replicate(model)
     train_step = make_dfv_train_step()
     eval_step = make_dfv_eval_step()
 
     args["mse_min"] = 100.0
     for epoch in range(args["epochs"] + 1):
         if epoch > 0:
-            scores = validate_dfv(eval_step, state, test_lens, val_loader,
-                                  n_stack, epoch, args)
-            save_checkpoint(args["results_dir"], state, "last")
-            if scores["mse"] < args["mse_min"]:
-                args["mse_min"] = scores["mse"]
-                save_checkpoint(args["results_dir"], state, "best")
+            if mesh.rank() == 0:
+                scores = validate_dfv(eval_step, state, test_lens, val_loader,
+                                      n_stack, epoch, args)
+                save_checkpoint(args["results_dir"], state, "last")
+                if scores["mse"] < args["mse_min"]:
+                    args["mse_min"] = scores["mse"]
+                    save_checkpoint(args["results_dir"], state, "best")
+            mesh.barrier()
         epoch_loss, n_batches = 0.0, 0
         for aif, depth in (train_loader if timer is None
                            else timer.timed(train_loader)):
-            if np.isnan(depth).any():
+            # a NaN in any rank's rows skips the global batch on every rank
+            if mesh.any_over_ranks(np.isnan(depth).any()):
                 continue
             aif, depth = to_device(device, aif, depth)
             t = None if timer is None else timer.start()
@@ -172,9 +181,8 @@ def train(args, device="cuda", timer=None):
     return state
 
 
-def main():
-    args = config()
-    train(args)
+def main(argv=None):
+    return run(config, train, argv, "configs/aber_aware_dff_dfv.yml")
 
 
 if __name__ == "__main__":

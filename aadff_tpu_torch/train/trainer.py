@@ -33,6 +33,7 @@ from ..models.aifnet import AiFDepthNet, compute_loss
 from ..models.convert import aifnet_state_from_flax
 from ..models.dfv.convert import dfvnet_state_from_flax
 from ..models.dfv.dffnet import DFVNet
+from ..parallel import mesh
 from ..utils import flax_msgpack
 from ..utils.image import imwrite_colormap, write_png
 
@@ -170,6 +171,13 @@ def guarded_step(state: TrainState, loss_fn) -> dict:
     norm is not finite leaves the parameters, the Adam moments and count and
     the BatchNorm statistics as they were; its losses read 0 and
     `skipped_nonfinite` 1.
+
+    Under data parallelism (`parallel/mesh.py`) each rank holds its rows of
+    the global batch.  The gradients and the losses are averaged over the
+    ranks in one all-reduce after `torch.autograd.grad` (which no
+    DistributedDataParallel hook would see), so every rank applies the same
+    update and reports the global losses; the guard reads the global loss
+    and the global gradient norm, so the ranks skip a batch together.
     """
     model = state.model
     model.train()
@@ -180,6 +188,10 @@ def guarded_step(state: TrainState, loss_fn) -> dict:
     # whose BatchNorm statistics still update) gets a zero gradient, as in JAX
     grads = torch.autograd.grad(losses["total"], state.opt.params,
                                 allow_unused=True, materialize_grads=True)
+    names = list(losses)
+    *grads, values = mesh.mean_over_ranks(
+        [*grads, torch.stack([losses[k].detach() for k in names])])
+    losses = dict(zip(names, values.unbind()))
     gnorm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
     ok = torch.isfinite(losses["total"]) & torch.isfinite(gnorm)
     state.opt.step(grads, ok)
@@ -187,7 +199,7 @@ def guarded_step(state: TrainState, loss_fn) -> dict:
         for b, before in zip(stats, stats_before):
             b.copy_(torch.where(ok, b, before))
         state.step += 1
-    losses = {k: torch.where(ok, v.detach(), 0.0) for k, v in losses.items()}
+    losses = {k: torch.where(ok, v, 0.0) for k, v in losses.items()}
     losses["skipped_nonfinite"] = (~ok).float()
     return losses
 
@@ -200,19 +212,21 @@ def trunk_dtype(args: dict):
 
 
 def make_aif_train_step(task: str, disp_w: float = 1.0, aif_w: float = 0.0,
-                        smooth_w: float = 0.0):
+                        smooth_w: float = 0.0, disp_depth: str = "depth"):
     """Returns train_step(state, stack, focus_dists, depth, aif) -> losses,
     guarded as `guarded_step` says.
 
-    stack [B, S, H, W, C]; depth and aif NCHW like the reference.  The model
-    may have a bf16 trunk (`AiFDepthNet(dtype=torch.bfloat16)`): its
-    parameters, Adam's moments, the guard and the loss stay f32.
+    stack [B, S, H, W, C]; depth and aif NCHW like the reference; `depth` is
+    the target of the model's `pred_<disp_depth>`.  The model may have a
+    bf16 trunk (`AiFDepthNet(dtype=torch.bfloat16)`): its parameters,
+    Adam's moments, the guard and the loss stay f32.
     """
 
     def train_step(state: TrainState, stack, focus_dists, depth, aif):
         return guarded_step(state, lambda model: compute_loss(
-            model(stack, focus_dists), {"depth": depth, "AiF_img": aif},
-            task, disp_w=disp_w, aif_w=aif_w, smooth_w=smooth_w))
+            model(stack, focus_dists), {disp_depth: depth, "AiF_img": aif},
+            task, disp_w=disp_w, aif_w=aif_w, smooth_w=smooth_w,
+            disp_depth=disp_depth))
 
     return train_step
 

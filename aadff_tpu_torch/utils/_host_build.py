@@ -3,9 +3,11 @@ compiler into a plain shared library and load it with ctypes.
 
 The library is built at first use into `build/aadff_tpu_torch/
 libaadff_host.so` under the repository root and rebuilt when the source or
-the flags change (a stamp file holds their hash).  Each builder writes to
-its own temporary names and moves the result into place with `os.replace`,
-so parallel test workers may race to build it.  There is no Python
+the flags change (a stamp file holds their hash).  The builder holds the
+kernels' file lock (`ops/_build.py:build_lock`) and checks the stamp again
+once it has it, so processes that start at once (test workers, the ranks
+of a data-parallel run) compile it once; it writes to temporary names and
+moves the library, then the stamp, into place with `os.replace`.  There is no Python
 fallback: without a compiler the build raises and names the compilers it
 looked for.  Calls through ctypes release the GIL, so a loader thread
 decodes while the training step runs.  Nothing here runs at import time.
@@ -20,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-from ..ops._build import BUILD_DIR
+from ..ops._build import BUILD_DIR, build_lock, is_current, write_stamp
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (_CSRC / "jpeg_decode.cpp",)
@@ -63,23 +65,22 @@ def build() -> dict:
     """Compile the library if it is missing or stale.  Returns {"path",
     "built", "log"}."""
     cxx = compiler()
-    stamp_file = LIBRARY.with_suffix(".so.stamp")
     stamp = _stamp(cxx)
-    if LIBRARY.exists() and stamp_file.exists() and stamp_file.read_text() == stamp:
+    if is_current(LIBRARY, stamp):
         return {"path": str(LIBRARY), "built": False, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"tmp{os.getpid()}.{threading.get_ident()}"
-    tmp = LIBRARY.with_suffix(f".so.{tag}")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, LIBRARY)
-    tmp_stamp = stamp_file.with_suffix(f".stamp.{tag}")
-    tmp_stamp.write_text(stamp)
-    os.replace(tmp_stamp, stamp_file)
+    with build_lock(LIBRARY):
+        if is_current(LIBRARY, stamp):  # another process built it meanwhile
+            return {"path": str(LIBRARY), "built": False, "log": ""}
+        tag = f"tmp{os.getpid()}.{threading.get_ident()}"
+        tmp = LIBRARY.with_suffix(f".so.{tag}")
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                               *map(str, SOURCES)], capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, LIBRARY)
+        write_stamp(LIBRARY, stamp, tag)
     return {"path": str(LIBRARY), "built": True, "log": log}
 
 

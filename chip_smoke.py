@@ -118,6 +118,30 @@ committed fixtures of tests/torch_assets/:
               Reports step_ms (CUDA events, render included), the loader's
               wait per step and a sample's host ms (JPEG, PNG, augmentation,
               resize)
+  data_parallel
+              data parallelism (aadff_tpu_torch/parallel/mesh.py) on the one
+              card, TF32 off: the main configuration's AiF (D_FS) and DFV
+              steps, 3 each from the trained checkpoints, first in this
+              process at bs 2, then on 2 gloo ranks of 1 row each
+              (torch.distributed.run of this script with --dp-worker
+              steps); the ranks held to the one process (step 1 rtol 1e-4,
+              3 steps 1e-3, BatchNorm statistics after step 1 within 1e-4
+              of each tensor's largest value), their parameters
+              bit-identical, one B1 launch per rank per step; per rank the
+              step ms, peak memory and the gradient all-reduce's ms and
+              bytes (gloo goes through the host: no forecast of NCCL across
+              cards).  Then the dry-run twin, scripts/dryrun_multichip.py,
+              under the launcher with 2 gloo ranks and with 1 NCCL rank,
+              and the AiF paper config (epochs cut to 1, paper_config's
+              fixtures) through train/dff_aif.py's config() and train() on
+              2 gloo ranks: equal epoch losses on both, validation and
+              checkpoints on rank 0 only, one B1 launch per render
+  variants    AiFDepthNet's variants (stage2='direct', normalize_attention,
+              n_classes=2 with disp_depth='disp', n_channels=4 with the
+              stack index, remat) and the plain model from a seeded init:
+              one train step (DA_FS) and one eval forward each at the main
+              configuration through B1, all finite; remat's peak memory
+              below the plain model's
   optics      the ray tracer on the card, both lens files
               (lenses/rf50mm.json, lenses/50mm_f2.8.json at 480x640):
               derived values, pupils, the trace of every wavelength and the
@@ -147,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -192,6 +217,15 @@ LOOP_TOL = 1e-6             # frame loop vs stack: tests/test_pallas.py:247
 ROWSUM_TOL = 1e-5           # PSF rows sum to 1: tests/test_pallas.py:22
 GOLDEN_TOL = 2e-4           # tests/test_psfnet_render.py:143
 BUDGET_S = 1000.0           # stop before the 1200 s the run may take
+# data_parallel: gloo ranks on the one card, and each launch's time limit.
+# The ranks against one process of this script on the same scenes from the
+# same checkpoints (TF32 off): step 1 is one forward in f32 (the ranks'
+# convolutions see one row, and BatchNorm takes Flax's E[x^2] - E[x]^2
+# where one process takes torch's two-pass variance), later steps carry
+# Adam's amplification of f32 noise (tests/test_torch_trainer.py), the
+# statistics after step 1 as ROADMAP C holds them against JAX.
+DP_RANKS, DP_TIMEOUT_S = 2, 300
+DP_STEP1_RTOL, DP_RTOL, DP_STATS_TOL = 1e-4, 1e-3, 1e-4
 # The tracer against optics_goldens.npz (tests/test_optics_core.py:100-148):
 # derived values and pupils, ray endpoints on the rays valid in both (the
 # masks agree on > 99.9%), and the refocus within its Monte-Carlo noise.
@@ -430,6 +464,11 @@ def state_equal(torch, a, b):
                                                       b.opt.mu + b.opt.nu))
             and int(a.opt.count) == int(b.opt.count)
             and int(a.step) == int(b.step))
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
 
 
 def read_jsonl(path):
@@ -787,6 +826,42 @@ class LogRecords:
         self.root.setLevel(self.level)
 
 
+def write_paper_config(tmp, family, gen, device, make_scenes):
+    """configs/aber_aware_dff_<family>.yml with its data paths pointed at a
+    Matterport3D layout of ENTRY_TRAIN frames and a Middlebury2014 layout of
+    ENTRY_VAL scenes under `tmp`, and its lens and checkpoint paths made
+    absolute: (the config's path, the aif dir, the depth dir)."""
+    aif_dir, depth_dir = write_matterport(os.path.join(tmp, "mp"), gen, device,
+                                          make_scenes)
+    val_dir = write_scene_dirs(os.path.join(tmp, "Middlebury2014"),
+                               *make_scenes(ENTRY_VAL, H, W, gen, device))
+    name = f"aber_aware_dff_{family}.yml"
+    with open(os.path.join(ROOT, "configs", name)) as f:
+        text = f.read()
+    for old, new in (("'./dataset/Matterport3D/train/aif'", repr(aif_dir)),
+                     ("'./dataset/Matterport3D/train/depth'", repr(depth_dir)),
+                     ("'./dataset/Middlebury2014'", repr(val_dir)),
+                     ("'./lenses/", repr(ROOT + "/lenses/")[:-1]),
+                     ("'./ckpt/", repr(ROOT + "/ckpt/")[:-1])):
+        check(old in text, f"{name} has no {old}")
+        text = text.replace(old, new)
+    config = os.path.join(tmp, name)
+    with open(config, "w") as f:
+        f.write(text)
+    return config, aif_dir, depth_dir
+
+
+def parse_train_log(messages):
+    """(the epoch losses, {metric: value}) that train/dff_*.py logged."""
+    losses = [float(m.group(1)) for m in map(
+        re.compile(r"epoch \d+: loss (\S+)").fullmatch, messages) if m]
+    metrics = {}
+    for m in map(re.compile(r"Avg_(\w+)\(\d+\): (\S+)").fullmatch, messages):
+        if m:
+            metrics[m.group(1)] = float(m.group(2))
+    return losses, metrics
+
+
 def run_paper_config(torch, np, gen, device, make_scenes, fused_render, mlp_psf,
                      family):
     """The paper_config phase for one family ("aif" or "dfv"):
@@ -801,7 +876,6 @@ def run_paper_config(torch, np, gen, device, make_scenes, fused_render, mlp_psf,
     steps' ms (CUDA events, render included), the loader's wait per step
     and a sample's host ms split.  Returns the phase's fields."""
     import math  # noqa: PLC0415
-    import re as re_  # noqa: PLC0415
     import shutil  # noqa: PLC0415
     import tempfile  # noqa: PLC0415
 
@@ -813,22 +887,8 @@ def run_paper_config(torch, np, gen, device, make_scenes, fused_render, mlp_psf,
     name = f"aber_aware_dff_{family}.yml"
     tmp = tempfile.mkdtemp(prefix=f"aadff_paper_{family}_")
     try:
-        aif_dir, depth_dir = write_matterport(os.path.join(tmp, "mp"), gen,
-                                              device, make_scenes)
-        val_dir = write_scene_dirs(os.path.join(tmp, "Middlebury2014"),
-                                   *make_scenes(ENTRY_VAL, H, W, gen, device))
-        with open(os.path.join(ROOT, "configs", name)) as f:
-            text = f.read()
-        for old, new in (("'./dataset/Matterport3D/train/aif'", repr(aif_dir)),
-                         ("'./dataset/Matterport3D/train/depth'", repr(depth_dir)),
-                         ("'./dataset/Middlebury2014'", repr(val_dir)),
-                         ("'./lenses/", repr(ROOT + "/lenses/")[:-1]),
-                         ("'./ckpt/", repr(ROOT + "/ckpt/")[:-1])):
-            check(old in text, f"{name} has no {old}")
-            text = text.replace(old, new)
-        config = os.path.join(tmp, name)
-        with open(config, "w") as f:
-            f.write(text)
+        config, aif_dir, depth_dir = write_paper_config(tmp, family, gen, device,
+                                                        make_scenes)
         args = load_config(config)
         check((args["train"]["dataset"], args["test"]["dataset"], args["bs"],
                args["n_stack"], tuple(args["res"]), args["ks"], float(args["lr"]))
@@ -854,12 +914,7 @@ def run_paper_config(torch, np, gen, device, make_scenes, fused_render, mlp_psf,
         steps = int(state.step)
         del state
 
-        losses = [float(m.group(1)) for m in map(
-            re_.compile(r"epoch \d+: loss (\S+)").fullmatch, log.messages) if m]
-        metrics = {}
-        for m in map(re_.compile(r"Avg_(\w+)\(\d+\): (\S+)").fullmatch, log.messages):
-            if m:
-                metrics[m.group(1)] = float(m.group(2))
+        losses, metrics = parse_train_log(log.messages)
         keys = VAL_METRICS if family == "aif" else dff_dfv.METRICS
         renders = steps + ENTRY_VAL
         fields = {
@@ -888,6 +943,397 @@ def run_paper_config(torch, np, gen, device, make_scenes, fused_render, mlp_psf,
         return fields
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_launcher(nproc, target, timeout=DP_TIMEOUT_S, errors_dir=None):
+    """`python -m torch.distributed.run --standalone --nproc_per_node nproc
+    *target` from the repository root, in a process group of its own that
+    is killed, with every process the launcher started, if it outlasts
+    `timeout`.  A failure reports the ranks' rank<r>.err files in
+    `errors_dir`.  Returns (its stdout, its seconds)."""
+    import signal  # noqa: PLC0415
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *target]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err = f"ran over {timeout} s\n{err}"
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        ranks = "".join(
+            f"--- {name}\n{open(os.path.join(errors_dir, name)).read()}"
+            for name in sorted(os.listdir(errors_dir or "."))
+            if errors_dir and name.endswith(".err"))
+        raise SmokeError(f"{' '.join(cmd[2:])} exited {proc.returncode}:\n"
+                         f"{ranks or err[-6000:]}")
+    return out, time.perf_counter() - t
+
+
+def dp_family(torch, family, device, trainer):
+    """The main configuration's model of `family` ("aif": AiFDepthNet on
+    task D_FS; "dfv": DFVNet level 2) from its trained checkpoint, and its
+    train step step(state, stack, focus, depth, aif) -> losses."""
+    from aadff_tpu_torch.models.aifnet import AiFDepthNet  # noqa: PLC0415
+    from aadff_tpu_torch.models.convert import load_flax_aifnet  # noqa: PLC0415
+    from aadff_tpu_torch.models.dfv.convert import load_flax_dfvnet  # noqa: PLC0415
+    from aadff_tpu_torch.models.dfv.dffnet import DFVNet  # noqa: PLC0415
+    from aadff_tpu_torch.train import dff_dfv  # noqa: PLC0415
+
+    if family == "aif":
+        model = AiFDepthNet()
+        model.load_state_dict(load_flax_aifnet(AIF_CKPT)[0])
+        return model.to(device), trainer.make_aif_train_step("D_FS")
+    model = DFVNet(clean=False, level=2, use_diff=1)
+    model.load_state_dict(load_flax_dfvnet(DFV_CKPT)[0])
+    step = dff_dfv.make_dfv_train_step()
+    return model.to(device), (lambda state, stack, focus, depth, aif:
+                              step(state, stack, focus, depth))
+
+
+def dp_steps(torch, scenes, lens, device):
+    """TRAIN_STEPS steps of each family from its checkpoint on `scenes`
+    ([(aif, depth)] global batches on the CPU), each step rendering its
+    stack through `lens` (B1): this rank's rows under an active mesh, all
+    of them in one process.  Returns ({family: losses, step ms, BatchNorm
+    statistics after step 1, parameter digest, peak GiB, and on several
+    ranks the gradient all-reduce's ms and bytes}, statistics)."""
+    import hashlib  # noqa: PLC0415
+
+    from aadff_tpu_torch.dff.focus import select_focus_dist  # noqa: PLC0415
+    from aadff_tpu_torch.parallel import mesh  # noqa: PLC0415
+    from aadff_tpu_torch.train import trainer  # noqa: PLC0415
+
+    out, stats = {}, {}
+    for family in ("aif", "dfv"):
+        model, step = dp_family(torch, family, device, trainer)
+        mesh.replicate(model)
+        state = trainer.create_train_state(model, LR, EPOCHS * TRAIN_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"losses": [], "step_ms": []}
+        for i, scene in enumerate(scenes):
+            aif, depth = (t.to(device) for t in mesh.shard_batch(*scene))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            focus = select_focus_dist(depth, N_STACK, mode="linear")
+            stack = trainer.render_focal_stack(lens, aif, depth, focus)
+            losses = step(state, stack, focus, depth, aif)
+            ev[1].record()
+            torch.cuda.synchronize()
+            rec["losses"].append({k: float(v) for k, v in losses.items()})
+            rec["step_ms"].append(ev[0].elapsed_time(ev[1]))
+            if i == 0:
+                stats[family] = {k: v.to("cpu", copy=True)
+                                 for k, v in model.state_dict().items()
+                                 if "running" in k}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        rec["params_sha256"] = digest.hexdigest()
+        if mesh.distributed():
+            # the step's one all-reduce: the gradients and the losses
+            flat = [torch.zeros_like(p) for p in state.opt.params]
+            flat.append(torch.zeros(len(rec["losses"][0]) - 1, device=device))
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                mesh.barrier()
+                t = time.perf_counter()
+                mesh.mean_over_ranks(flat)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+            rec["grad_allreduce_ms"] = ms
+            rec["grad_allreduce_bytes"] = sum(4 * f.numel() for f in flat)
+        out[family] = rec
+        del model, state
+    return out, stats
+
+
+def dp_paper(torch, device, workdir, config):
+    """The AiF paper config through train/dff_aif.py's config() and train()
+    on this rank, epochs cut to 1, from `workdir` (config() writes
+    ./results/<date>-AberAware_DFF_AiFNet there): the rank's fields."""
+    from aadff_tpu_torch.ops import fused_render, mlp_psf  # noqa: PLC0415
+    from aadff_tpu_torch.train import dff_aif  # noqa: PLC0415
+    from aadff_tpu_torch.train.trainer import StepTimer  # noqa: PLC0415
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        args = dff_aif.config(config)
+        args["epochs"] = 1
+        timer = StepTimer(device)
+        reset_counts(fused_render, mlp_psf)
+        t = time.perf_counter()
+        with LogRecords() as log:
+            state = dff_aif.train(args, device=str(device), timer=timer)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        results = os.path.join(workdir, args["results_dir"])
+    finally:
+        os.chdir(cwd)
+    losses, metrics = parse_train_log(log.messages)
+    return {"num_devices": args["num_devices"], "steps": int(state.step),
+            "epoch_losses": losses, "val": metrics, "step_ms": timer.step_ms(),
+            "loader_wait_ms": timer.waits, "run_s": run_s,
+            "launches": dict(fused_render.variant_launches),
+            "mlp_psf_launches": mlp_psf.launches,
+            "checkpoints": sorted(f for f in os.listdir(results)
+                                  if f.endswith(".pt")),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dp_worker(args):
+    """One rank of a data_parallel launch (`--dp-worker steps|paper`,
+    started by torch.distributed.run on the one card through gloo): writes
+    <dp-dir>/rank<r>.json, and for `steps` rank<r>_stats.pt."""
+    import torch
+
+    from aadff_tpu_torch.ops import fused_render, mlp_psf
+    from aadff_tpu_torch.parallel import mesh
+    from aadff_tpu_torch.psfnet.psfnet import PSFNet
+
+    rank = int(os.environ["RANK"])
+    try:
+        m = mesh.setup("gloo", "cuda:0")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if args.dp_worker == "steps":
+            lens = PSFNet(kernel_size=KS, sensor_res=(H, W), device=m.device)
+            lens.load_net(PSFNET_CKPT)
+            scenes = torch.load(os.path.join(args.dp_dir, "scenes.pt"))
+            reset_counts(fused_render, mlp_psf)
+            out, stats = dp_steps(torch, scenes, lens, m.device)
+            out["launches"] = dict(fused_render.variant_launches)
+            out["mlp_psf_launches"] = mlp_psf.launches
+            torch.save(stats, os.path.join(args.dp_dir, f"rank{m.rank}_stats.pt"))
+        else:
+            out = dp_paper(torch, m.device, args.dp_dir, args.config)
+        out.update(rank=m.rank, world=m.size, backend=m.backend,
+                   device=str(m.device))
+        with open(os.path.join(args.dp_dir, f"rank{m.rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        import traceback  # noqa: PLC0415
+
+        with open(os.path.join(args.dp_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        mesh.teardown()
+    return 0
+
+
+def run_data_parallel(torch, gen, device, make_scenes, lens, fused_render,
+                      mlp_psf):
+    """The data_parallel phase on the one card, TF32 off.  Returns (the
+    phase's fields, B1 launches by run)."""
+    import shutil  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    from aadff_tpu_torch.train.trainer import VAL_METRICS  # noqa: PLC0415
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="aadff_dp_")
+    me = os.path.join(ROOT, "chip_smoke.py")
+    fields, launches = {"ranks": DP_RANKS, "backend": "gloo", "tf32": False}, {}
+    try:
+        # the main configuration's steps: one process, then 2 ranks
+        scenes = [tuple(t.cpu() for t in make_scenes(BS, H, W, gen, device))
+                  for _ in range(TRAIN_STEPS)]
+        steps_dir = os.path.join(tmp, "steps")
+        os.makedirs(steps_dir)
+        torch.save(scenes, os.path.join(steps_dir, "scenes.pt"))
+        ref, ref_stats = dp_steps(torch, scenes, lens, device)
+        torch.cuda.empty_cache()
+        _, seconds = run_launcher(DP_RANKS, [me, "--dp-worker", "steps",
+                                             "--dp-dir", steps_dir],
+                                  errors_dir=steps_dir)
+        ranks = [read_json(os.path.join(steps_dir, f"rank{r}.json"))
+                 for r in range(DP_RANKS)]
+        stats = [torch.load(os.path.join(steps_dir, f"rank{r}_stats.pt"))
+                 for r in range(DP_RANKS)]
+        steps = {"launcher_s": seconds, "one_process": ref, "tol": {
+            "step1_rtol": DP_STEP1_RTOL, "rtol": DP_RTOL, "stats": DP_STATS_TOL}}
+        for family in ("aif", "dfv"):
+            theirs = [x["total"] for x in ref[family]["losses"]]
+            dev = {}
+            for r, rank in enumerate(ranks):
+                ours = [x["total"] for x in rank[family]["losses"]]
+                rel = [abs(a - b) / abs(b) for a, b in zip(ours, theirs)]
+                st = max(float((v - ref_stats[family][k]).abs().max()
+                               / ref_stats[family][k].abs().max().clamp(min=1e-6))
+                         for k, v in stats[r][family].items())
+                dev[f"rank{r}"] = {"loss_rel": rel, "stats_rel": st}
+                check(rel[0] <= DP_STEP1_RTOL and max(rel) <= DP_RTOL,
+                      f"data_parallel {family} rank {r}: losses {ours} against "
+                      f"one process {theirs}")
+                check(st <= DP_STATS_TOL, f"data_parallel {family} rank {r}: "
+                                          f"BatchNorm statistics {st:.3g} apart")
+                check(all(x["skipped_nonfinite"] == 0.0
+                          for x in rank[family]["losses"]),
+                      f"data_parallel {family} rank {r} skipped a step")
+            check(len({rank[family]["params_sha256"] for rank in ranks}) == 1,
+                  f"data_parallel {family}: the ranks' parameters differ")
+            steps[family] = {"vs_one_process": dev, "ranks": [
+                {k: rank[family][k] for k in ("losses", "step_ms", "peak_gib",
+                                              "grad_allreduce_ms",
+                                              "grad_allreduce_bytes")}
+                for rank in ranks]}
+        for r, rank in enumerate(ranks):
+            check(rank["launches"] == {"stack/f32/full": 2 * TRAIN_STEPS}
+                  and rank["mlp_psf_launches"] == 0,
+                  f"data_parallel rank {r} launches {rank['launches']}")
+        launches["steps"] = [rank["launches"]["stack/f32/full"] for rank in ranks]
+        fields["steps"] = steps
+
+        # the dry-run twin through the launcher: 2 gloo ranks, 1 NCCL rank
+        for name, nproc, flags in (("gloo", DP_RANKS, ["--backend", "gloo",
+                                                       "--device", "cuda:0"]),
+                                   ("nccl", 1, [])):
+            report = os.path.join(tmp, f"dryrun_{name}")
+            os.makedirs(report)
+            out, seconds = run_launcher(nproc, [
+                "-m", "aadff_tpu_torch.scripts.dryrun_multichip", *flags,
+                "--report", report])
+            line = [x for x in out.splitlines() if x.startswith("dryrun_multichip(")]
+            reps = [read_json(os.path.join(report, f"rank{r}.json"))
+                    for r in range(nproc)]
+            check(len(line) == 1 and line[0].startswith(
+                f"dryrun_multichip({nproc}): ok, loss="), f"dryrun {name}: {out}")
+            for r, rep in enumerate(reps):
+                check(rep["world"] == nproc and rep["backend"] == name
+                      and rep["launches"] == {"stack/f32/full": 1}
+                      and rep["loss"] == reps[0]["loss"],
+                      f"dryrun {name} rank {r}: {rep}")
+            fields[f"dryrun_{name}"] = {"line": line[0], "launcher_s": seconds,
+                                        "ranks": reps}
+            launches[f"dryrun_{name}"] = [1] * nproc
+
+        # the AiF paper config on 2 ranks
+        paper_dir = os.path.join(tmp, "paper")
+        os.makedirs(paper_dir)
+        config, _, _ = write_paper_config(paper_dir, "aif", gen, device,
+                                          make_scenes)
+        _, seconds = run_launcher(DP_RANKS, [me, "--dp-worker", "paper",
+                                             "--dp-dir", paper_dir,
+                                             "--config", config],
+                                  errors_dir=paper_dir)
+        ranks = [read_json(os.path.join(paper_dir, f"rank{r}.json"))
+                 for r in range(DP_RANKS)]
+        steps = 2 * (ENTRY_TRAIN // BS)
+        for r, rank in enumerate(ranks):
+            renders = steps + (ENTRY_VAL if r == 0 else 0)
+            check(rank["num_devices"] == DP_RANKS and rank["steps"] == steps
+                  and len(rank["step_ms"]) == steps,
+                  f"paper config rank {r}: {rank['steps']} steps")
+            check(len(rank["epoch_losses"]) == 2
+                  and rank["epoch_losses"] == ranks[0]["epoch_losses"]
+                  and all(math.isfinite(x) for x in rank["epoch_losses"]),
+                  f"paper config rank {r}: epoch losses {rank['epoch_losses']}")
+            check(rank["launches"] == {"stack/f32/full": renders}
+                  and rank["mlp_psf_launches"] == 0,
+                  f"paper config rank {r}: launches {rank['launches']}, "
+                  f"expected {renders}")
+        check(set(VAL_METRICS) <= set(ranks[0]["val"]) and all(
+            math.isfinite(ranks[0]["val"][k]) for k in VAL_METRICS)
+            and ranks[1]["val"] == {}, "paper config: validation on rank 0 only")
+        check("depth_net_last.pt" in ranks[0]["checkpoints"]
+              and ranks[0]["checkpoints"] == ranks[1]["checkpoints"],
+              f"paper config checkpoints {[x['checkpoints'] for x in ranks]}")
+        fields["paper_config_aif"] = {"config": "configs/aber_aware_dff_aif.yml",
+                                      "epochs": 1, "launcher_s": seconds,
+                                      "ranks": ranks}
+        launches["paper_config_aif"] = [rank["launches"]["stack/f32/full"]
+                                        for rank in ranks]
+        fields["note"] = ("gloo carries every collective through the host: "
+                          "these times say nothing of NCCL across cards")
+        fields["launches"] = launches
+        return fields, launches
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+VARIANTS = {"plain": {}, "direct": {"stage2": "direct"},
+            "normalize_attention": {"normalize_attention": True},
+            "two_classes_disp": {"n_classes": 2, "disp_depth": "disp"},
+            "four_channels": {"n_channels": 4}, "remat": {"remat": True}}
+
+
+def run_variants(torch, gen, device, make_scenes, lens, trainer, fused_render,
+                 mlp_psf):
+    """The variants phase: AiFDepthNet's variants (and the plain model) from
+    a seeded init, one train step (DA_FS: every loss term) and one eval
+    forward each at the main configuration through B1.  Returns (the
+    phase's fields, B1 launches)."""
+    from aadff_tpu_torch.dff.focus import select_focus_dist  # noqa: PLC0415
+    from aadff_tpu_torch.models.aifnet import (AiFDepthNet,  # noqa: PLC0415
+                                               add_stack_index_channel)
+
+    (aif, depth), (aif2, depth2) = (make_scenes(BS, H, W, gen, device)
+                                    for _ in range(2))
+    eval_step = trainer.make_aif_eval_step()
+    fields = {"task": "DA_FS", "aif_w": 1.0, "smooth_w": 0.1}
+    torch.cuda.synchronize()
+    reset_counts(fused_render, mlp_psf)
+    for name, kw in VARIANTS.items():
+        torch.manual_seed(0)
+        model = AiFDepthNet(n_stack=N_STACK, **kw).to(device)
+        state = trainer.create_train_state(model, LR, EPOCHS * TRAIN_STEPS)
+        dd = kw.get("disp_depth", "depth")
+        step = trainer.make_aif_train_step("DA_FS", aif_w=1.0, smooth_w=0.1,
+                                           disp_depth=dd)
+        index = (add_stack_index_channel if kw.get("n_channels") == 4
+                 else lambda stack: stack)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        focus = select_focus_dist(depth, N_STACK, mode="linear")
+        stack = trainer.render_focal_stack(lens, aif, depth, focus)
+        losses = step(state, index(stack), focus, depth, aif)
+        ev[1].record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        focus2 = select_focus_dist(depth2, N_STACK, mode="linear")
+        out = eval_step(state, index(trainer.render_focal_stack(
+            lens, aif2, depth2, focus2)), focus2)
+        torch.cuda.synchronize()
+        rec = {"fields": kw, "loss": float(losses["total"]),
+               "skipped_nonfinite": float(losses["skipped_nonfinite"]),
+               "step_ms": ev[0].elapsed_time(ev[1]), "peak_gib": peak,
+               "outputs": {k: list(v.shape) for k, v in out.items()},
+               "outputs_finite": all(bool(torch.isfinite(v).all())
+                                     for v in out.values())}
+        fields[name] = rec
+        check(math.isfinite(rec["loss"]) and rec["skipped_nonfinite"] == 0.0
+              and rec["outputs_finite"], f"variant {name}: {rec}")
+        check(set(out) == {f"pred_{dd}", "pred_AiF_img"}
+              and rec["outputs"][f"pred_{dd}"] == [BS, 1, H, W],
+              f"variant {name}: outputs {rec['outputs']}")
+        del model, state, stack, out
+    check(fields["remat"]["peak_gib"] < fields["plain"]["peak_gib"],
+          f"remat's peak {fields['remat']['peak_gib']:.3f} GiB is not below "
+          f"the plain model's {fields['plain']['peak_gib']:.3f}")
+    torch.cuda.synchronize()
+    launches = dict(fused_render.variant_launches)
+    fields["launches"] = launches
+    check(launches == {"stack/f32/full": 2 * len(VARIANTS)}
+          and mlp_psf.launches == 0, f"variants launches {launches}")
+    return fields, launches["stack/f32/full"]
 
 
 def run_dfv_levels(torch, gen, device, make_scenes, lens, trainer,
@@ -1424,6 +1870,10 @@ def run_psf_gate(torch, device):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of the data_parallel phase's launches (torch.distributed.run)
+    ap.add_argument("--dp-worker", choices=("steps", "paper"), help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--config", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1445,6 +1895,9 @@ def main():
     from aadff_tpu_torch.ops import _build, fused_render, mlp_psf
     from aadff_tpu_torch.psfnet.psfnet import PSFNet
     from aadff_tpu_torch.train import dff_dfv, trainer
+
+    if args.dp_worker:
+        return dp_worker(args)
 
     def phase(name, t0, **fields):
         elapsed = time.perf_counter() - t_start
@@ -2005,6 +2458,20 @@ def main():
         paper_launches[family] = paper["launches"]["stack/f32/full"]
         phase("paper_config", t0, family=family, **paper)
 
+    # ---- data parallelism: 2 gloo ranks on the card against one process,
+    # the dry-run twin under the launcher (gloo x 2, NCCL x 1), the AiF
+    # paper config on 2 ranks ----------------------------------------------
+    t0 = time.perf_counter()
+    dp, dp_launches = run_data_parallel(torch, gen, device, make_scenes, net,
+                                        fused_render, mlp_psf)
+    phase("data_parallel", t0, **dp)
+
+    # ---- AiFDepthNet's variants at full width ----------------------------
+    t0 = time.perf_counter()
+    variants, variants_launches = run_variants(torch, gen, device, make_scenes,
+                                               net, trainer, fused_render, mlp_psf)
+    phase("variants", t0, **variants)
+
     # ---- the lens ray tracer and PSFNet fitting --------------------------
     t0 = time.perf_counter()
     phase("optics", t0, **run_optics(torch, np, device))
@@ -2046,6 +2513,8 @@ def main():
               dfv_entry_launches=dfv_entry_launches,
               thinlens_launches=thinlens_launches,
               paper_config_launches=paper_launches,
+              data_parallel_launches=dp_launches,
+              variants_launches=variants_launches,
               psf_fit_launches=fit_launches),
         entry("fused_psf_render_bf16", render_src, b1,
               bf16_launches["stack/bf16/full"], b1_16["stack_2x8x3x480x640"],

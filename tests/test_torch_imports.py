@@ -22,10 +22,11 @@ def test_importing_the_port_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in PORT_FILES if p.startswith("aadff_tpu_torch")]
     for twin in ("aber_aware_dff_synth", "aber_aware_dff_dfv_synth",
-                 "fit_psfnet", "psf_gate"):
+                 "fit_psfnet", "psf_gate", "dryrun_multichip"):
         assert f"aadff_tpu_torch.scripts.{twin}" in modules
-    # the readers and the host library's builder (JPEG, EXR)
-    for mod in ("aadff_tpu_torch.utils.image", "aadff_tpu_torch.utils._host_build"):
+    # the readers and the host library's builder (JPEG, EXR); data parallelism
+    for mod in ("aadff_tpu_torch.utils.image", "aadff_tpu_torch.utils._host_build",
+                "aadff_tpu_torch.parallel", "aadff_tpu_torch.parallel.mesh"):
         assert mod in modules
     code = (f"import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
